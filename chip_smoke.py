@@ -11,14 +11,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. Kernels against their plain torch versions on the card, at the shapes the
    PUT/GET path gives them: the Reed-Solomon kernel at [64, 12, 87382] for
    encode, at a 4-loss reconstruct pattern and at ragged shard lengths; the
-   HighwayHash kernel at [1024, 87382] and at every tail length. Bytes must
-   be equal (tolerance: exact). Times come from CUDA events.
+   HighwayHash kernel at N = 1, 16 (the GET verify batch), 17 and 1,024 (the
+   64-block encode batch) streams at every tail length, and on rows whose
+   base lies 1..15 bytes past a 16-byte boundary. Bytes must be equal
+   (tolerance: exact). Times come from CUDA events: the hash at [16, 87382]
+   and at [1024, 87382], each launch on rows not in the L2 cache.
 3. The slice: one 16-drive 12+4 erasure set under a temp dir, driven through
    ErasureObjects with BatchingDeviceCodec(max_batch=64): PUT one 128 MiB
    object, then 8 concurrent 16 MiB objects; GET each back byte-exact;
    remove the part files of 4 drives and GET each again (degraded read
    through the reconstruct kernel). Kernel launch counts are reset just
    before this phase and read just after; each kernel must have launched.
+   The hash kernel's launches are also tallied by their N.
    A small object is also PUT through a numpy HostCodec stack and its part
    files must equal the device stack's byte for byte.
 
@@ -29,13 +33,16 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
+import itertools
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -126,27 +133,58 @@ def phase_kernels(dev: torch.device) -> dict:
         f"(plain {rs_plain_ms:.2f} ms, torch fp16 bit-matmul {rs_lib_ms:.4f} ms, bound {rs_bound:.4f} ms)")
 
     # -- kernel 2: HighwayHash-256 -----------------------------------------
-    herr = 0
-    for length in (0, 1, 3, 4, 15, 16, 22, 31, 32, 33, 255, 256, 4096, S_FULL):
-        xs = rand((5, length))
-        herr = max(herr, max_abs_err(highwayhash_cuda.hash256_batch(xs), highwayhash_torch.hash256_batch(xs)))
-    h = rand((1024, S_FULL))
-    t0 = time.perf_counter()
-    want_h = highwayhash_torch.hash256_batch(h)
-    torch.cuda.synchronize()
-    hh_plain_ms = (time.perf_counter() - t0) * 1e3
-    herr = max(herr, max_abs_err(highwayhash_cuda.hash256_batch(h), want_h))
+    def hash_err(x: torch.Tensor) -> int:
+        return max_abs_err(highwayhash_cuda.hash256_batch(x), highwayhash_torch.hash256_batch(x))
+
+    def plain_timed(x: torch.Tensor) -> tuple[torch.Tensor, float]:
+        t0 = time.perf_counter()
+        want = highwayhash_torch.hash256_batch(x)
+        torch.cuda.synchronize()
+        return want, (time.perf_counter() - t0) * 1e3
+
+    lengths = (0, 1, 3, 4, 15, 16, 22, 31, 32, 33, 255, 256, 4096, S_FULL)
+    h, h16 = rand((1024, S_FULL)), rand((16, S_FULL))
+    want_h, hh_plain_ms = plain_timed(h)
+    want_h16, hh_plain_ms_n16 = plain_timed(h16)
+    herr = max(max_abs_err(highwayhash_cuda.hash256_batch(h), want_h),
+               max_abs_err(highwayhash_cuda.hash256_batch(h16), want_h16))
+    for n in (1, 16, 17, 1024):
+        for length in lengths:
+            if length != S_FULL or n not in (16, 1024):
+                herr = max(herr, hash_err(rand((n, length))))
+    # Rows whose base lies off a 16-byte boundary: views into one flat buffer.
+    offsets = range(1, 16)
+    for length in lengths:
+        buf = rand((16 + 17 * length,))
+        views = [buf[off : off + 17 * length].view(17, length) for off in offsets]
+        got = torch.cat([highwayhash_cuda.hash256_batch(v) for v in views])
+        herr = max(herr, max_abs_err(got, highwayhash_torch.hash256_batch(torch.cat(views))))
     torch.cuda.synchronize()
     if herr:
         raise AssertionError(f"hh256 disagrees with its plain version: max abs err {herr}")
+    log(f"hh256 equals its plain version at N in (1, 16, 17, 1024) x {len(lengths)} lengths "
+        f"and at base offsets {offsets.start}..{offsets.stop - 1}")
+    # [1024, 87382] is 89 MB, more than the 50 MB L2, so each launch reads
+    # cold rows; the verify shape rotates over 48 batches (67 MB) for the same.
     hh_ms = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(h), 10)
-    hh_bytes = h.numel() + 1024 * 32
-    # Per 32-byte packet and lane: 3 adds, 2 multiplies, 2 masks, 2 shifts,
-    # 2 xors, plus ~24 zipper shift/mask/or ops per lane pair: ~60 ops.
-    hh_ops = 1024 * (S_FULL // 32 + 11) * 4 * 60
-    hh_bound = max(hh_bytes / HBM_BYTES_PER_S, hh_ops / INT32_ALU_OPS_PER_S) * 1e3
-    hh_bound_by = "bytes" if hh_bytes / HBM_BYTES_PER_S >= hh_ops / INT32_ALU_OPS_PER_S else "operations"
-    log(f"kernel hh256 ok: [1024,{S_FULL}] {hh_ms:.4f} ms (plain {hh_plain_ms:.1f} ms, bound {hh_bound:.4f} ms)")
+    verify = rand((48, 16, S_FULL))
+    turn = itertools.cycle(range(48))
+    hh_ms_n16 = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(verify[next(turn)]), 96)
+    del verify
+
+    def hh_bound(n: int) -> tuple[float, str]:
+        nbytes = n * S_FULL + n * 32
+        # Per 32-byte packet and lane: 3 adds, 2 multiplies, 2 masks, 2
+        # shifts, 2 xors, plus ~24 zipper shift/mask/or ops per lane pair:
+        # ~60 ops.
+        ops = n * (S_FULL // 32 + 11) * 4 * 60
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_ALU_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    hh_bound_ms, hh_bound_by = hh_bound(1024)
+    hh_bound_ms_n16, _ = hh_bound(16)
+    log(f"kernel hh256 ok: [1024,{S_FULL}] {hh_ms:.4f} ms (plain {hh_plain_ms:.1f} ms, bound {hh_bound_ms:.4f} ms); "
+        f"[16,{S_FULL}] {hh_ms_n16:.4f} ms (plain {hh_plain_ms_n16:.1f} ms, bound {hh_bound_ms_n16:.6f} ms)")
     return {
         "rs_gf_apply": {
             "name": "rs_gf_apply", "route": "cuda", "source": "minio_tpu_torch/csrc/rs_gf.cu",
@@ -157,8 +195,9 @@ def phase_kernels(dev: torch.device) -> dict:
         "hh256": {
             "name": "hh256", "route": "cuda", "source": "minio_tpu_torch/csrc/highwayhash.cu",
             "replaces": "minio_tpu/ops/highwayhash_pallas.py:92", "max_abs_err": herr,
-            "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound,
-            "bound_by": hh_bound_by, "library_ms": None,
+            "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound_ms,
+            "bound_by": hh_bound_by, "library_ms": None, "shape": [1024, S_FULL],
+            "ms_n16": hh_ms_n16, "plain_ms_n16": hh_plain_ms_n16, "bound_ms_n16": hh_bound_ms_n16,
         },
     }
 
@@ -205,6 +244,18 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
     codec = BatchingDeviceCodec(max_batch=64, device=dev)
     try:
         eo, drives = _make_set(os.path.join(root, "gpu"), codec)
+        # Tally the hash kernel's launches by N (its third argument) beside
+        # the wrapper's own count.
+        hh_by_n: collections.Counter = collections.Counter()
+        tally_lock = threading.Lock()
+        hh_launch = highwayhash_cuda.KERNEL.launch
+
+        def hh_launch_tallied(*args):
+            hh_launch(*args)
+            with tally_lock:
+                hh_by_n[args[2]] += 1
+
+        highwayhash_cuda.KERNEL.launch = hh_launch_tallied
         rs_cuda.KERNEL.launches = 0
         highwayhash_cuda.KERNEL.launches = 0
 
@@ -240,6 +291,7 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
         launches = {"rs_gf_apply": rs_cuda.KERNEL.launches, "hh256": highwayhash_cuda.KERNEL.launches}
         st = codec.stats()
     finally:
+        highwayhash_cuda.KERNEL.__dict__.pop("launch", None)
         codec.close()
     for name, n in launches.items():
         if n == 0:
@@ -252,6 +304,7 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
     log(f"slice stats: {json.dumps(st)}")
     log(f"launches during the {big_mib} MiB PUT: rs_gf_apply {put_big_launches[0]}, "
         f"hh256 {put_big_launches[1]}")
+    log(f"hh256 launches on the main path by N: {json.dumps(dict(sorted(hh_by_n.items())))}")
     log(f"PUT {big_mib} MiB: {gib_big / put_big:.3f} GiB/s; "
         f"PUT 8x{small_mib} MiB concurrent: {gib_small / put_small:.3f} GiB/s [{smi}]")
     log(f"GET {big_mib} MiB: {gib_big / get_big:.3f} GiB/s; "
@@ -276,7 +329,7 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
         codec2.close()
         shutil.rmtree(root, ignore_errors=True)
     log("reference check ok: 16 part files byte-identical to the numpy host codec")
-    return launches
+    return launches, dict(sorted(hh_by_n.items()))
 
 
 def main() -> int:
@@ -286,9 +339,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_gpu_and_build()
     kernels = phase_kernels(dev)
-    launches = phase_slice(dev, smi)
+    launches, hh_by_n = phase_slice(dev, smi)
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
+    kernels["hh256"]["launches_by_n"] = {str(n): c for n, c in hh_by_n.items()}
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -17,6 +17,7 @@ import json
 import numpy as np
 import torch
 
+from .models.pipeline import resolve_device
 from .ops import rs_matrix
 from .storage.format import DriveFormat
 
@@ -38,7 +39,7 @@ def from_jax_layout(
     want: tuple[int, ...] | None = None,
     reconstruct_rows=None,
     format_json: "str | dict | None" = None,
-    device="cpu",
+    device="cuda",
 ) -> dict:
     """Convert JAX-package coding state for a (k, m) geometry.
 
@@ -53,26 +54,28 @@ def from_jax_layout(
       -> "format", a DriveFormat.
 
     Each array must equal what this package derives for the same inputs.
+    Tensors go to ``device``: "cuda" unless the caller asks for "cpu"; "cuda"
+    without a card raises.
     """
     out: dict = {}
     if parity_matrix is not None:
         pm = _u8(parity_matrix, "parity_matrix")
         if not np.array_equal(pm, rs_matrix.parity_matrix(k, m)):
             raise ValueError(f"parity matrix does not match the ({k}, {m}) code")
-        out["parity"] = torch.from_numpy(pm.copy()).to(device)
+        out["parity"] = torch.from_numpy(pm.copy()).to(resolve_device(device))
     if parity_weights is not None:
         w = np.asarray(parity_weights)
         want_w = rs_matrix.bit_expand(rs_matrix.parity_matrix(k, m))
         if w.shape != want_w.shape or not np.array_equal(w.astype(np.uint8), want_w):
             raise ValueError(f"parity weights do not match the ({k}, {m}) code's bit expansion")
-        out["parity_weights"] = torch.from_numpy(w.astype(np.int8)).to(device)
+        out["parity_weights"] = torch.from_numpy(w.astype(np.int8)).to(resolve_device(device))
     if reconstruct_rows is not None:
         if present is None or want is None:
             raise ValueError("reconstruct_rows needs its present mask and want rows")
         rr = _u8(reconstruct_rows, "reconstruct_rows")
         if not np.array_equal(rr, rs_matrix.reconstruct_rows(k, m, tuple(present), tuple(want))):
             raise ValueError("reconstruct rows do not match the loss pattern")
-        out["reconstruct"] = torch.from_numpy(rr.copy()).to(device)
+        out["reconstruct"] = torch.from_numpy(rr.copy()).to(resolve_device(device))
     if format_json is not None:
         raw = format_json if isinstance(format_json, str) else json.dumps(format_json)
         out["format"] = DriveFormat.from_json(raw)

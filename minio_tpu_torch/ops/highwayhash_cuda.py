@@ -5,7 +5,9 @@ bitrot digests. It replaces the TPU kernel
 ``minio_tpu/ops/highwayhash_pallas.py::_kernel`` (launched by ``_run_chain``)
 together with the XLA epilogue that finished its hash: ``csrc/highwayhash.cu``
 runs the packet chain, the tail packet, the permute rounds and the modular
-reduction in one launch.
+reduction in one launch, with two threads per stream (one lane pair each)
+and the rows staged through shared memory. Rows may start at any byte
+address, so a contiguous view with a storage offset is hashed in place.
 
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
 version, ops/highwayhash_torch.py. A kernel that fails to build or launch

@@ -109,9 +109,15 @@ def _modular_reduction(a3u, a2, a1, a0):
 
 
 def _words(packets: torch.Tensor) -> torch.Tensor:
-    """[..., 32*P] u8 -> [..., P, 4] int64 little-endian packet lanes."""
+    """[..., 32*P] u8 -> [..., P, 4] int64 little-endian packet lanes.
+
+    The bytes are copied into fresh storage first: a slice can count as
+    contiguous (one row) and still have a row stride or storage offset that
+    is no multiple of 8, which an int64 view refuses."""
     *lead, nbytes = packets.shape
-    return packets.contiguous().view(torch.int64).reshape(*lead, nbytes // 32, 4)
+    dense = torch.empty(packets.shape, dtype=torch.uint8, device=packets.device)
+    dense.copy_(packets)
+    return dense.view(torch.int64).reshape(*lead, nbytes // 32, 4)
 
 
 def hash256_batch(data: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:

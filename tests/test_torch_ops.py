@@ -32,6 +32,7 @@ from minio_tpu.ops import rs_ref as jax_rs_ref
 from minio_tpu.ops.rs_pallas import RSPallasCodec
 from minio_tpu.storage import format as jax_format
 from minio_tpu_torch import convert
+from minio_tpu_torch.ops import highwayhash as port_hh
 from minio_tpu_torch.ops import highwayhash_cuda, highwayhash_torch, rs, rs_cuda, rs_matrix
 from minio_tpu_torch.storage import format as port_format
 from tests.golden_rs import GOLDEN
@@ -156,6 +157,128 @@ def test_hash_matches_pallas(length):
     np.testing.assert_array_equal(got, np.asarray(jax_hhp.hash256_batch(data)))
 
 
+_U64 = np.uint64
+_M32 = _U64(0xFFFFFFFF)
+
+
+def _byte_perm(x, y, sel: int):
+    """CUDA __byte_perm on u32 values held in u64 arrays."""
+    src = [(x >> _U64(8 * i)) & _U64(0xFF) for i in range(4)] + [
+        (y >> _U64(8 * i)) & _U64(0xFF) for i in range(4)
+    ]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << _U64(8 * i)
+    return out
+
+
+def _funnel_r(lo, hi, bits: int):
+    """CUDA __funnelshift_r(lo, hi, bits) for 0 <= bits < 32."""
+    return (((hi << _U64(32)) | lo) >> _U64(bits)) & _M32
+
+
+def _join(lo, hi):
+    return lo | (hi << _U64(32))
+
+
+class _HalfState:
+    """One kernel thread's state: lanes 2h, 2h+1 of v0/v1/mul0/mul1, [B] u64 each."""
+
+    def __init__(self, half: int, b: int):
+        key = np.frombuffer(port_hh.MAGIC_KEY, dtype="<u8")
+        lanes = [2 * half, 2 * half + 1]
+        rot = (key >> _U64(32)) | (key << _U64(32))
+        self.v0 = [np.full(b, port_hh._INIT0[i] ^ key[i]) for i in lanes]
+        self.v1 = [np.full(b, port_hh._INIT1[i] ^ rot[i]) for i in lanes]
+        self.mul0 = [np.full(b, port_hh._INIT0[i]) for i in lanes]
+        self.mul1 = [np.full(b, port_hh._INIT1[i]) for i in lanes]
+
+    @staticmethod
+    def _zipper(a, b):
+        al, ah, bl, bh = a & _M32, a >> _U64(32), b & _M32, b >> _U64(32)
+        e = _join(_byte_perm(_byte_perm(al, ah, 0x5203), bh, 0x3240), _byte_perm(al, bh, 0x0716))
+        o = _join(_byte_perm(_byte_perm(bl, bh, 0x5203), ah, 0x3240), _byte_perm(bl, ah, 0x7061))
+        return e, o
+
+    def update(self, lanes) -> None:
+        for i in range(2):
+            self.v1[i] = self.v1[i] + self.mul0[i] + lanes[i]
+            self.mul0[i] = self.mul0[i] ^ ((self.v1[i] & _M32) * (self.v0[i] >> _U64(32)))
+            self.v0[i] = self.v0[i] + self.mul1[i]
+            self.mul1[i] = self.mul1[i] ^ ((self.v0[i] & _M32) * (self.v1[i] >> _U64(32)))
+        e, o = self._zipper(self.v1[0], self.v1[1])
+        self.v0 = [self.v0[0] + e, self.v0[1] + o]
+        e, o = self._zipper(self.v0[0], self.v0[1])
+        self.v1 = [self.v1[0] + e, self.v1[1] + o]
+
+
+def _lane_pair_hash(data: np.ndarray, shift: int) -> np.ndarray:
+    """HighwayHash-256 of [B, L] rows as csrc/highwayhash.cu computes it: two
+    independent lane-pair states per stream, each reading its 16 bytes of a
+    packet as 5 aligned u32 words of a buffer whose row starts `shift` bytes
+    past a 16-byte boundary, funnel-shifted; the pairs exchange v0 lanes only
+    in the permute rounds."""
+    b, length = data.shape
+    width = -(-(shift + length + 20) // 4) * 4
+    buf = np.zeros((b, width), dtype=np.uint8)
+    buf[:, shift : shift + length] = data
+    words = buf.view("<u4").astype(np.uint64)
+    fs = 8 * (shift & 3)
+    halves = [_HalfState(0, b), _HalfState(1, b)]
+    n_full = length // 32
+    with np.errstate(over="ignore"):
+        for p in range(n_full):
+            for h, st in enumerate(halves):
+                w = words[:, (shift + 32 * p + 16 * h) // 4 :][:, :5].T
+                st.update([
+                    _join(_funnel_r(w[0], w[1], fs), _funnel_r(w[1], w[2], fs)),
+                    _join(_funnel_r(w[2], w[3], fs), _funnel_r(w[3], w[4], fs)),
+                ])
+        r = length - 32 * n_full
+        if r:
+            packet = port_hh._remainder_packet(np.ascontiguousarray(data[:, 32 * n_full :]))
+            lanes = packet.view("<u8").astype(np.uint64)
+            for h, st in enumerate(halves):
+                for i in range(2):
+                    st.v0[i] = st.v0[i] + _U64((r << 32) + r)
+                    st.v1[i] = port_hh._rotate_32_by(r, st.v1[i])
+                st.update([lanes[:, 2 * h], lanes[:, 2 * h + 1]])
+        for _ in range(10):
+            # Each thread's packet lanes are the partner's v0 lanes, rotated.
+            swapped = [list(halves[1].v0), list(halves[0].v0)]
+            for st, partner in zip(halves, swapped):
+                st.update([port_hh._rot32(v) for v in partner])
+        out = []
+        for st in halves:
+            m0, m1 = port_hh._modular_reduction(
+                st.v1[1] + st.mul1[1], st.v1[0] + st.mul1[0], st.v0[1] + st.mul0[1], st.v0[0] + st.mul0[0]
+            )
+            out += [m0, m1]
+    return np.stack(out, axis=1).astype("<u8").view(np.uint8)
+
+
+@pytest.mark.parametrize("shift", [0, 6, 13])
+@pytest.mark.parametrize("length", [0, 1, 31, 32, 33, 255, 87_382])
+def test_hash_lane_pair_split_matches_oracle(length, shift):
+    data = np.random.default_rng(length * 16 + shift).integers(0, 256, (3, length), dtype=np.uint8)
+    np.testing.assert_array_equal(_lane_pair_hash(data, shift), port_hh.hash256_batch(data))
+
+
+# One row of a wider tensor counts as contiguous whatever its row stride, and
+# a view can start at any byte: the plain version must hash both.
+@pytest.mark.parametrize("length", [33, 64, 87_382])
+def test_hash_plain_one_row_and_offset_views(length):
+    data = np.random.default_rng(length).integers(0, 256, (3, length + 1), dtype=np.uint8)
+    t = torch.from_numpy(data)
+    np.testing.assert_array_equal(
+        highwayhash_cuda.hash256_batch(t[:1, :length]).numpy(), jax_hh_host.hash256_batch(data[:1, :length])
+    )
+    flat = t.reshape(-1)[3 : 3 + 2 * length].view(2, length)
+    np.testing.assert_array_equal(
+        highwayhash_cuda.hash256_batch(flat).numpy(), jax_hh_host.hash256_batch(flat.numpy())
+    )
+
+
 def test_hash_leading_batch_shape():
     data = np.random.default_rng(11).integers(0, 256, (2, 3, 100), dtype=np.uint8)
     got = highwayhash_torch.hash256_batch(torch.from_numpy(data)).numpy()
@@ -176,6 +299,7 @@ def test_from_jax_layout_coding_state():
         parity_weights=jax_rs.parity_weights(k, m),
         present=present, want=want,
         reconstruct_rows=jax_rs_matrix.reconstruct_rows(k, m, present, want),
+        device="cpu",
     )
     assert out["parity"].dtype == torch.uint8 and tuple(out["parity"].shape) == (m, k)
     np.testing.assert_array_equal(out["parity_weights"].numpy(), jax_rs.parity_weights(k, m))
@@ -185,6 +309,18 @@ def test_from_jax_layout_coding_state():
     data = np.random.default_rng(5).integers(0, 256, (1, k, 64), dtype=np.uint8)
     got = rs.gf_matmul(torch.from_numpy(data), out["parity_weights"]).numpy()
     np.testing.assert_array_equal(got, np.asarray(RSPallasCodec(k, m).encode(data)))
+
+
+def test_from_jax_layout_defaults_to_cuda():
+    # Like every entry point of the port, the converter puts tensors on the
+    # card unless the caller asks for the CPU; without a card that raises.
+    pm = jax_rs_matrix.parity_matrix(12, 4)
+    if torch.cuda.is_available():
+        assert convert.from_jax_layout(12, 4, parity_matrix=pm)["parity"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.from_jax_layout(12, 4, parity_matrix=pm)
+    assert convert.from_jax_layout(12, 4, parity_matrix=pm, device="cpu")["parity"].device.type == "cpu"
 
 
 def test_from_jax_layout_rejects_mismatch():
@@ -277,9 +413,25 @@ def test_cuda_rs_kernel_matches_plain(cuda_device, s):
     assert torch.equal(rs_cuda.apply(x, pm), rs_cuda.plain(x, pm))
 
 
+# N = 16 is the GET verify batch (one block), 17 leaves a part-filled block,
+# 1,024 is the 64-block encode batch.
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 16, 17, 1024])
 @pytest.mark.parametrize("length", [0, 3, 22, 33, 87_382])
-def test_cuda_hash_kernel_matches_plain(cuda_device, length):
-    gen = torch.Generator().manual_seed(length)
-    x = torch.randint(0, 256, (9, length), dtype=torch.uint8, generator=gen).to(cuda_device)
+def test_cuda_hash_kernel_matches_plain(cuda_device, length, n):
+    gen = torch.Generator().manual_seed(length + n)
+    x = torch.randint(0, 256, (n, length), dtype=torch.uint8, generator=gen).to(cuda_device)
     assert torch.equal(highwayhash_cuda.hash256_batch(x), highwayhash_torch.hash256_batch(x))
+
+
+# Rows whose base lies 1..15 bytes past a 16-byte boundary: views into one
+# flat buffer. The plain version runs once on all offsets' rows stacked.
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [22, 33, 1046, 87_382])
+def test_cuda_hash_kernel_unaligned_rows(cuda_device, length):
+    n, offsets = 17, range(1, 16)
+    gen = torch.Generator().manual_seed(length)
+    buf = torch.randint(0, 256, (16 + n * length,), dtype=torch.uint8, generator=gen).to(cuda_device)
+    views = [buf[off : off + n * length].view(n, length) for off in offsets]
+    got = torch.cat([highwayhash_cuda.hash256_batch(v) for v in views])
+    assert torch.equal(got, highwayhash_torch.hash256_batch(torch.cat(views)))
