@@ -10,19 +10,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    minio_tpu_torch/_build/.
 2. Kernels against their plain torch versions on the card, at the shapes the
    PUT/GET path gives them: the Reed-Solomon kernel at [64, 12, 87382] for
-   encode, at a 4-loss reconstruct pattern and at ragged shard lengths; the
-   HighwayHash kernel at N = 1, 16 (the GET verify batch), 17 and 1,024 (the
-   64-block encode batch) streams at every tail length, and on rows whose
-   base lies 1..15 bytes past a 16-byte boundary. Bytes must be equal
-   (tolerance: exact). Times come from CUDA events: the hash at [16, 87382]
-   and at [1024, 87382], each launch on rows not in the L2 cache.
+   encode and a 4-row reconstruct, on the fused encode's layout (data and
+   parity rows of one all-shards tensor) at B = 1, 16 and 64, at R = 1..4
+   rows and at S in {1, 3, 15, 16, 17, 4095, 4096, 87381, 87382}, and on
+   input and output rows whose base lies 1..15 bytes past a 16-byte
+   boundary; the HighwayHash kernel at N = 1, 16 (the GET verify batch), 17
+   and 1,024 (the 64-block encode batch) streams at every tail length, and
+   on rows whose base lies 1..15 bytes past a 16-byte boundary. Bytes must
+   be equal (tolerance: exact). Times come from CUDA events, each launch on
+   rows not in the L2 cache: the RS kernel at [64, 12, 87382] contiguous,
+   on the encode view at B = 16 and 64 and a 4-row reconstruct at B = 16,
+   each with its bytes bound; the hash at [16, 87382] and [1024, 87382].
 3. The slice: one 16-drive 12+4 erasure set under a temp dir, driven through
    ErasureObjects with BatchingDeviceCodec(max_batch=64): PUT one 128 MiB
    object, then 8 concurrent 16 MiB objects; GET each back byte-exact;
    remove the part files of 4 drives and GET each again (degraded read
    through the reconstruct kernel). Kernel launch counts are reset just
    before this phase and read just after; each kernel must have launched.
-   The hash kernel's launches are also tallied by their N.
+   The hash kernel's launches are also tallied by their N, the RS kernel's
+   by their (B, R).
    A small object is also PUT through a numpy HostCodec stack and its part
    files must equal the device stack's byte for byte.
 
@@ -96,6 +102,7 @@ def phase_gpu_and_build():
 
 def phase_kernels(dev: torch.device) -> dict:
     from minio_tpu_torch.ops import highwayhash_cuda, highwayhash_torch, rs_cuda, rs_matrix
+    from minio_tpu_torch.tools.rs_probe import graph_ms
 
     gen = torch.Generator(device="cpu").manual_seed(1234)
 
@@ -104,33 +111,85 @@ def phase_kernels(dev: torch.device) -> dict:
 
     # -- kernel 1: RS GF(2^8) map ------------------------------------------
     parity = rs_matrix.parity_matrix(K, M)
-    x = rand((64, K, S_FULL))
-    err = max_abs_err(rs_cuda.apply(x, parity), rs_cuda.plain(x, parity))
     lost = (0, 5, 12, 15)
     present = tuple(i not in lost for i in range(K + M))
-    want = tuple(j for j in lost if j < K) + (12,)
-    rec = rs_matrix.reconstruct_rows(K, M, present, want)
+    recs = {r: rs_matrix.reconstruct_rows(K, M, present, (0, 5, 12, 15)[:r]) for r in (1, 2, 3, 4)}
+
+    def rs_err(x, coeffs, out=None) -> int:
+        got = rs_cuda.apply(x, coeffs, out=out)
+        return max_abs_err(got, rs_cuda.plain(x, coeffs))
+
+    x = rand((64, K, S_FULL))
+    err = rs_err(x, parity)
     surv = rand((64, K, S_FULL))
-    err = max(err, max_abs_err(rs_cuda.apply(surv, rec), rs_cuda.plain(surv, rec)))
-    for s in (1, 3, 17, 4095, 4096, 87_381):
-        xs = rand((3, K, s))
-        err = max(err, max_abs_err(rs_cuda.apply(xs, parity), rs_cuda.plain(xs, parity)))
+    err = max(err, rs_err(surv, recs[4]))
+    # The fused encode's layout: data rows and parity rows of one all-shards
+    # tensor (batch stride (K+M)*S, parity rows at (K+r)*S).
+    for b in (1, 16, 64):
+        shards = rand((b, K + M, S_FULL))
+        err = max(err, rs_err(shards[:, :K], parity, out=shards[:, K:]))
+    rs_lengths = (1, 3, 15, 16, 17, 4095, 4096, 87_381, S_FULL)
+    for s in rs_lengths:
+        for r, coeffs in recs.items():
+            err = max(err, rs_err(rand((3, K, s)), coeffs))
+        err = max(err, rs_err(rand((3, K, s)), parity))
+        # Rows 1..15 bytes past a 16-byte boundary, in and out: views into
+        # flat buffers, one R in 1..4 per offset.
+        xbuf, obuf = rand((16 + 2 * K * s,)), rand((16 + 2 * M * s,))
+        for off in range(1, 16):
+            r = 1 + off % 4
+            coeffs = parity if r == M else recs[r]
+            o = (7 * off + 3) % 16
+            xv = xbuf[off : off + 2 * K * s].view(2, K, s)
+            ov = obuf[o : o + 2 * r * s].view(2, r, s)
+            err = max(err, rs_err(xv, coeffs, out=ov))
     torch.cuda.synchronize()
     if err:
         raise AssertionError(f"rs_gf_apply disagrees with its plain version: max abs err {err}")
-    rs_ms = cuda_time_ms(lambda: rs_cuda.apply(x, parity), 20)
+    log(f"rs_gf_apply equals its plain version: [64,{K},{S_FULL}] encode and 4-row reconstruct, the fused "
+        f"layout at B in (1, 16, 64), R in 1..4 at S in {rs_lengths}, base offsets 1..15 in and out")
+
+    def rs_bound(b: int, r: int) -> tuple[float, str]:
+        nbytes = b * (K + r) * S_FULL
+        ops = 2 * b * S_FULL * (K * 8) * (r * 8)  # the bit-matmul's MACs x 2
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    def rs_cold_ms(b: int, r: int, layout: str) -> float:
+        # Rotate over copies that together exceed the 50 MB L2, so each
+        # launch reads rows that are not in the cache.
+        copies = max(2, -(-64 * MiB // (b * (K + M) * S_FULL)))
+        coeffs = parity if layout != "reconstruct" else recs[r]
+        if layout == "encode view":
+            bufs = [rand((b, K + M, S_FULL)) for _ in range(copies)]
+            calls = [(t[:, :K], t[:, K:]) for t in bufs]
+        else:
+            calls = [(rand((b, K, S_FULL)), torch.empty((b, r, S_FULL), dtype=torch.uint8, device=dev))
+                     for _ in range(copies)]
+        # Device time from a CUDA graph of the launches: at B = 16 the wrapper's
+        # host time per call is not far below the kernel's.
+        return graph_ms([lambda xi=xi, oi=oi: rs_cuda.apply(xi, coeffs, out=oi) for xi, oi in calls], 10)
+
+    rs_shapes = []
+    for b, r, layout in ((64, M, "contiguous"), (16, M, "encode view"), (64, M, "encode view"),
+                         (16, 4, "reconstruct")):
+        ms = rs_cold_ms(b, r, layout)
+        bound_ms, bound_by = rs_bound(b, r)
+        rs_shapes.append({"shape": [b, K, S_FULL], "rows": r, "layout": layout, "ms": ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"kernel rs_gf_apply: [{b},{K},{S_FULL}] -> {r} rows, {layout}: {ms:.4f} ms "
+            f"(bound {bound_ms:.4f} ms, {bound_by})")
+    rs_ms = rs_shapes[0]["ms"]
     rs_plain_ms = cuda_time_ms(lambda: rs_cuda.plain(x, parity), 2)
     # Library yardstick: one torch matmul doing the same GF(2) product on
     # pre-unpacked bits in fp16 (sums <= 96 are exact), not used by the port.
     bits = torch.randint(0, 2, (64 * S_FULL, K * 8), generator=gen).to(dev, torch.float16)
     w = torch.from_numpy(rs_matrix.bit_expand(parity).astype(np.float16)).to(dev)
     rs_lib_ms = cuda_time_ms(lambda: bits @ w, 20)
-    rs_bytes = x.numel() + 64 * M * S_FULL
-    rs_ops = 2 * 64 * S_FULL * (K * 8) * (M * 8)  # the bit-matmul's MACs x 2
-    rs_bound = max(rs_bytes / HBM_BYTES_PER_S, rs_ops / INT8_TENSOR_OPS_PER_S) * 1e3
-    rs_bound_by = "bytes" if rs_bytes / HBM_BYTES_PER_S >= rs_ops / INT8_TENSOR_OPS_PER_S else "operations"
+    del bits
+    rs_bound_ms, rs_bound_by = rs_bound(64, M)
     log(f"kernel rs_gf_apply ok: [64,{K},{S_FULL}] encode {rs_ms:.4f} ms "
-        f"(plain {rs_plain_ms:.2f} ms, torch fp16 bit-matmul {rs_lib_ms:.4f} ms, bound {rs_bound:.4f} ms)")
+        f"(plain {rs_plain_ms:.2f} ms, torch fp16 bit-matmul {rs_lib_ms:.4f} ms, bound {rs_bound_ms:.4f} ms)")
 
     # -- kernel 2: HighwayHash-256 -----------------------------------------
     def hash_err(x: torch.Tensor) -> int:
@@ -189,8 +248,9 @@ def phase_kernels(dev: torch.device) -> dict:
         "rs_gf_apply": {
             "name": "rs_gf_apply", "route": "cuda", "source": "minio_tpu_torch/csrc/rs_gf.cu",
             "replaces": "minio_tpu/ops/rs_pallas.py:72", "max_abs_err": err,
-            "ms": rs_ms, "plain_ms": rs_plain_ms, "bound_ms": rs_bound,
-            "bound_by": rs_bound_by, "library_ms": rs_lib_ms,
+            "ms": rs_ms, "plain_ms": rs_plain_ms, "bound_ms": rs_bound_ms,
+            "bound_by": rs_bound_by, "library_ms": rs_lib_ms, "shape": [64, K, S_FULL],
+            "shapes": rs_shapes,
         },
         "hh256": {
             "name": "hh256", "route": "cuda", "source": "minio_tpu_torch/csrc/highwayhash.cu",
@@ -256,6 +316,16 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
                 hh_by_n[args[2]] += 1
 
         highwayhash_cuda.KERNEL.launch = hh_launch_tallied
+        # And the RS kernel's by (B, R): its sixth and eighth arguments.
+        rs_by_br: collections.Counter = collections.Counter()
+        rs_launch = rs_cuda.KERNEL.launch
+
+        def rs_launch_tallied(*args):
+            rs_launch(*args)
+            with tally_lock:
+                rs_by_br[(args[5], args[7])] += 1
+
+        rs_cuda.KERNEL.launch = rs_launch_tallied
         rs_cuda.KERNEL.launches = 0
         highwayhash_cuda.KERNEL.launches = 0
 
@@ -292,6 +362,7 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
         st = codec.stats()
     finally:
         highwayhash_cuda.KERNEL.__dict__.pop("launch", None)
+        rs_cuda.KERNEL.__dict__.pop("launch", None)
         codec.close()
     for name, n in launches.items():
         if n == 0:
@@ -305,6 +376,8 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
     log(f"launches during the {big_mib} MiB PUT: rs_gf_apply {put_big_launches[0]}, "
         f"hh256 {put_big_launches[1]}")
     log(f"hh256 launches on the main path by N: {json.dumps(dict(sorted(hh_by_n.items())))}")
+    rs_by_br = {f"B={b},R={r}": n for (b, r), n in sorted(rs_by_br.items())}
+    log(f"rs_gf_apply launches on the main path by (B, R): {json.dumps(rs_by_br)}")
     log(f"PUT {big_mib} MiB: {gib_big / put_big:.3f} GiB/s; "
         f"PUT 8x{small_mib} MiB concurrent: {gib_small / put_small:.3f} GiB/s [{smi}]")
     log(f"GET {big_mib} MiB: {gib_big / get_big:.3f} GiB/s; "
@@ -329,7 +402,7 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
         codec2.close()
         shutil.rmtree(root, ignore_errors=True)
     log("reference check ok: 16 part files byte-identical to the numpy host codec")
-    return launches, dict(sorted(hh_by_n.items()))
+    return launches, dict(sorted(hh_by_n.items())), rs_by_br
 
 
 def main() -> int:
@@ -339,10 +412,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_gpu_and_build()
     kernels = phase_kernels(dev)
-    launches, hh_by_n = phase_slice(dev, smi)
+    launches, hh_by_n, rs_by_br = phase_slice(dev, smi)
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     kernels["hh256"]["launches_by_n"] = {str(n): c for n, c in hh_by_n.items()}
+    kernels["rs_gf_apply"]["launches_by_b_r"] = rs_by_br
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

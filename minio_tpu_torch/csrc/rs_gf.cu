@@ -10,114 +10,471 @@
 // _apply_sched), which ran the same map as a compiled XOR schedule over bit
 // planes. A schedule compiled into the kernel would need one build per loss
 // pattern, so here the coefficients are data: the host expands C into
-// product tables (ops/rs_cuda.py::product_table) that every block copies
-// into shared memory.
+// product tables (ops/rs_cuda.py) that every block copies into shared memory
+// once.
 //
-// Table layout: table[g][k][v] is a u32 whose byte j is gfmul(C[4g+j][k], v)
-// (zero for rows past R). One shared-memory load per input byte yields the
-// products for four output rows at once; the four are XOR-accumulated in
-// one u32 per byte position and split into rows at the end.
+// Bound: the map reads B*K*S bytes and writes B*R*S, so the card's memory
+// rate (3.35 TB/s) bounds it. The design:
 //
-// Bound: the map moves B*K*S bytes in and B*R*S out, so the card's memory
-// rate bounds it. What limits this simple kernel first is the instruction
-// throughput of the table loads (K loads per byte position and row group,
-// at data-dependent banks). Each thread owns 16 consecutive byte positions of one batch item:
-// one 16-byte load per input row when the rows are 16-byte aligned, byte
-// loads otherwise (S = ceil(1 MiB / 12) = 87,382 leaves most rows
-// unaligned).
+// - 16-byte global access at any row alignment. Rows start at any byte
+//   (S = ceil(1 MiB / 12) = 87,382 is 6 mod 16, and the fused encode passes
+//   views), but a row's base offset mod 16 is the same for every lane of a
+//   warp. A warp owns 512 consecutive positions of a row per tile, 16 per
+//   lane. Each lane loads the aligned granule holding its first byte and
+//   takes the bytes past it from lane t+1 (__shfl_down_sync of the words it
+//   needs, then __funnelshift_r); the last lane loads that granule itself.
+//   Output runs the other way: lane t assembles the aligned output granule
+//   holding its first byte from lane t-1's last bytes (__shfl_up_sync) and its
+//   own, and writes one uint4. A warp walks a contiguous span of tiles and
+//   carries its last lane's bytes to the next tile's first lane through shared
+//   memory, so only the two granules at a span's edges take narrow stores
+//   (aligned 8/4/2/1-byte pieces). Neighbouring spans write disjoint bytes of
+//   a shared edge granule. A granule holding a byte of a row lies inside the
+//   allocation (CUDA allocations are >= 256-byte aligned), so loads of
+//   covering granules never leave it.
+// - Four output rows per lookup: table word [g][k][.] packs gfmul(C[4g+j][k], v)
+//   in byte j, so one lookup serves four output rows; the 16 per-position
+//   accumulators are turned into four rows of 16 bytes by 4x4 byte transposes
+//   (__byte_perm).
+// - Persistent grid: as many blocks as fit the card at once (or the work, if
+//   less). Each block copies the tables once, and its warps walk spans of
+//   whole tiles, sized so the spans of all batch items fill the resident warps.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBytes = 16;  // byte positions per thread
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 512;    // row positions a warp handles per step, 16 a lane
+constexpr int kRowBatch = 4;  // input rows whose granule loads are issued together
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <bool kVec>
+// Bytes a..a+15 (0 <= a <= 16) of the 32 bytes lo ++ hi.
+__device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, int a) {
+  uint32_t c0, c1, c2, c3, c4;
+  switch (a >> 2) {
+    case 0: c0 = lo.x; c1 = lo.y; c2 = lo.z; c3 = lo.w; c4 = hi.x; break;
+    case 1: c0 = lo.y; c1 = lo.z; c2 = lo.w; c3 = hi.x; c4 = hi.y; break;
+    case 2: c0 = lo.z; c1 = lo.w; c2 = hi.x; c3 = hi.y; c4 = hi.z; break;
+    case 3: c0 = lo.w; c1 = hi.x; c2 = hi.y; c3 = hi.z; c4 = hi.w; break;
+    default: c0 = hi.x; c1 = hi.y; c2 = hi.z; c3 = hi.w; c4 = 0; break;
+  }
+  const int sh = 8 * (a & 3);
+  return make_uint4(__funnelshift_r(c0, c1, sh), __funnelshift_r(c1, c2, sh),
+                    __funnelshift_r(c2, c3, sh), __funnelshift_r(c3, c4, sh));
+}
+
+// Bytes [lo, hi) of the 16-byte granule v to its aligned address g, in
+// naturally aligned pieces of 1, 2, 4 and 8 bytes (0 <= lo < hi <= 16).
+__device__ __forceinline__ void store_bytes(uint8_t* g, uint4 v, int lo, int hi) {
+  const uint64_t w0 = (static_cast<uint64_t>(v.y) << 32) | v.x;
+  const uint64_t w1 = (static_cast<uint64_t>(v.w) << 32) | v.z;
+  auto piece = [&](int i) { return i < 8 ? w0 >> (8 * i) : w1 >> (8 * (i - 8)); };
+  int i = lo;
+  if ((i & 1) && i + 1 <= hi) { g[i] = static_cast<uint8_t>(piece(i)); i += 1; }
+  if ((i & 2) && i + 2 <= hi) { *reinterpret_cast<uint16_t*>(g + i) = static_cast<uint16_t>(piece(i)); i += 2; }
+  if ((i & 4) && i + 4 <= hi) { *reinterpret_cast<uint32_t*>(g + i) = static_cast<uint32_t>(piece(i)); i += 4; }
+  if ((i & 8) && i + 8 <= hi) { *reinterpret_cast<uint64_t*>(g + i) = piece(i); i += 8; }
+  if (i + 8 <= hi) { *reinterpret_cast<uint64_t*>(g + i) = piece(i); i += 8; }
+  if (i + 4 <= hi) { *reinterpret_cast<uint32_t*>(g + i) = static_cast<uint32_t>(piece(i)); i += 4; }
+  if (i + 2 <= hi) { *reinterpret_cast<uint16_t*>(g + i) = static_cast<uint16_t>(piece(i)); i += 2; }
+  if (i + 1 <= hi) g[i] = static_cast<uint8_t>(piece(i));
+}
+
+// acc[j] ^= the product word of byte j of w, for j in 0..15.
+template <bool kNibble>
+__device__ __forceinline__ void lookup16(uint32_t (&acc)[16], uint4 w, const uint32_t* t) {
+  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t v = ws[j >> 2] >> (8 * (j & 3));
+    if (kNibble) {
+      acc[j] ^= t[v & 15] ^ t[16 + ((v >> 4) & 15)];
+    } else {
+      acc[j] ^= t[v & 255];
+    }
+  }
+}
+
+// Byte r of acc[4q + i] is row r's byte at position 4q + i: a 4x4 byte
+// transpose per quad gives each row's four words.
+__device__ __forceinline__ void transpose(const uint32_t (&acc)[16], uint4 (&o)[4]) {
+  uint32_t rows[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t a0 = acc[4 * q], a1 = acc[4 * q + 1], a2 = acc[4 * q + 2], a3 = acc[4 * q + 3];
+    const uint32_t t0 = __byte_perm(a0, a1, 0x5140), t1 = __byte_perm(a0, a1, 0x7362);
+    const uint32_t t2 = __byte_perm(a2, a3, 0x5140), t3 = __byte_perm(a2, a3, 0x7362);
+    rows[0][q] = __byte_perm(t0, t2, 0x5410);
+    rows[1][q] = __byte_perm(t0, t2, 0x7632);
+    rows[2][q] = __byte_perm(t1, t3, 0x5410);
+    rows[3][q] = __byte_perm(t1, t3, 0x7632);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) o[r] = make_uint4(rows[r][0], rows[r][1], rows[r][2], rows[r][3]);
+}
+
+template <bool kNibble>
 __global__ void __launch_bounds__(kThreads)
 rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
                    const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
-                   long long out_bstride, int K, int R, long long S) {
-  extern __shared__ uint32_t tab[];
+                   long long out_bstride, int K, int R, long long S, long long span_tiles,
+                   long long spans_per_row, long long items) {
+  constexpr int kEntries = kNibble ? 32 : 256;
+  extern __shared__ uint4 smem[];
+  // [kWarps][2][4]: the last lane's output granules of a warp's previous tile
+  // (by tile parity), read by the next tile's first lane.
+  uint4* carry = smem;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + kWarps * 8);
   const int G = (R + 3) / 4;
-  for (int i = threadIdx.x; i < G * K * 256; i += blockDim.x) tab[i] = table[i];
+  for (int i = threadIdx.x; i < G * K * kEntries; i += kThreads) tab[i] = table[i];
   __syncthreads();
 
-  const long long s0 = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * kBytes;
-  if (s0 >= S) return;
-  const int b = blockIdx.y;
-  const uint8_t* xb = x + b * x_bstride;
-  uint8_t* ob = out + b * out_bstride;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long item = static_cast<long long>(blockIdx.x) * kWarps + warp; item < items;
+       item += n_warps) {
+    const long long b = item / spans_per_row;
+    const long long begin = (item - b * spans_per_row) * span_tiles * kTile;
+    const long long end = min(S, begin + span_tiles * kTile);
+    const uint8_t* xb = x + b * x_bstride;
+    uint8_t* ob = out + b * out_bstride;
 
-  for (int g = 0; g < G; ++g) {
-    uint32_t acc[kBytes];
+    int parity = 0;
+    for (int g = 0; g < G; ++g) {
+      const int rows = min(4, R - 4 * g);
+      for (long long t0 = begin; t0 < end; t0 += kTile, parity ^= 1) {
+        const long long p = t0 + 16 * lane;  // this lane's first position
+        uint32_t acc[16];
 #pragma unroll
-    for (int j = 0; j < kBytes; ++j) acc[j] = 0;
+        for (int j = 0; j < 16; ++j) acc[j] = 0;
 
-    for (int k = 0; k < K; ++k) {
-      const uint8_t* row = xb + k * S + s0;
-      const uint32_t* t = tab + (g * K + k) * 256;
-      uint32_t w[4];
-      if (kVec) {
-        const uint4 q = __ldg(reinterpret_cast<const uint4*>(row));
-        w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
-      } else {
+        for (int k0 = 0; k0 < K; k0 += kRowBatch) {
+          uint4 q[kRowBatch], nx[kRowBatch];
+          int al[kRowBatch];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) w[q] = 0;
+          for (int i = 0; i < kRowBatch; ++i) {
+            q[i] = nx[i] = make_uint4(0, 0, 0, 0);
+            al[i] = 0;
+            if (k0 + i < K) {
+              const uint8_t* row = xb + static_cast<long long>(k0 + i) * S;
+              const int a = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+              const uint8_t* gp = row + p - a;  // aligned granule holding position p
+              al[i] = a;
+              if (p - a < end) q[i] = __ldg(reinterpret_cast<const uint4*>(gp));
+              if (lane == 31 && a && p + 16 - a < end) nx[i] = __ldg(reinterpret_cast<const uint4*>(gp + 16));
+            }
+          }
 #pragma unroll
-        for (int j = 0; j < kBytes; ++j) {
-          if (s0 + j < S) w[j >> 2] |= static_cast<uint32_t>(__ldg(row + j)) << (8 * (j & 3));
+          for (int i = 0; i < kRowBatch; ++i) {
+            if (k0 + i < K) {
+              const int a = al[i];
+              // Words [0, ceil(a/4)) of lane t+1's granule.
+              const int need = (a + 3) >> 2;
+              uint4 n = q[i];
+              if (need > 0) n.x = __shfl_down_sync(kFull, q[i].x, 1);
+              if (need > 1) n.y = __shfl_down_sync(kFull, q[i].y, 1);
+              if (need > 2) n.z = __shfl_down_sync(kFull, q[i].z, 1);
+              if (need > 3) n.w = __shfl_down_sync(kFull, q[i].w, 1);
+              if (lane == 31) n = nx[i];
+              lookup16<kNibble>(acc, realign(q[i], n, a), tab + (g * K + k0 + i) * kEntries);
+            }
+          }
         }
-      }
-#pragma unroll
-      for (int j = 0; j < kBytes; ++j) acc[j] ^= t[(w[j >> 2] >> (8 * (j & 3))) & 0xFF];
-    }
 
-    const int rows = min(4, R - 4 * g);
-    for (int rr = 0; rr < rows; ++rr) {
-      const int sh = 8 * rr;
-      uint32_t o[4];
+        uint4 o[4];
+        transpose(acc, o);
+        uint4* carry_in = carry + (warp * 2 + (parity ^ 1)) * 4;
+        uint4* carry_out = carry + (warp * 2 + parity) * 4;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        o[q] = ((acc[4 * q] >> sh) & 0xFF) | (((acc[4 * q + 1] >> sh) & 0xFF) << 8) |
-               (((acc[4 * q + 2] >> sh) & 0xFF) << 16) | (((acc[4 * q + 3] >> sh) & 0xFF) << 24);
-      }
-      uint8_t* orow = ob + (4 * g + rr) * S + s0;
-      if (kVec) {
-        *reinterpret_cast<uint4*>(orow) = make_uint4(o[0], o[1], o[2], o[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kBytes; ++j) {
-          if (s0 + j < S) orow[j] = static_cast<uint8_t>(o[j >> 2] >> (8 * (j & 3)));
+        for (int r = 0; r < 4; ++r) {
+          if (r >= rows) break;
+          uint8_t* orow = ob + static_cast<long long>(4 * g + r) * S;
+          const int c = static_cast<int>(reinterpret_cast<uintptr_t>(orow) & 15);
+          // Words [first, 4) of lane t-1's row bytes: its last c bytes.
+          const int first = (16 - c) >> 2;
+          uint4 prev = o[r];
+          if (first <= 0) prev.x = __shfl_up_sync(kFull, o[r].x, 1);
+          if (first <= 1) prev.y = __shfl_up_sync(kFull, o[r].y, 1);
+          if (first <= 2) prev.z = __shfl_up_sync(kFull, o[r].z, 1);
+          if (first <= 3) prev.w = __shfl_up_sync(kFull, o[r].w, 1);
+          if (lane == 0) prev = carry_in[r];  // garbage on a span's first tile: not stored
+          if (lane == 31) carry_out[r] = o[r];
+          // Granule A at position p - c: prev's last c bytes, then own first 16 - c.
+          const long long ga = p - c;
+          if (ga < end) {
+            const uint4 va = c ? realign(prev, o[r], 16 - c) : o[r];
+            if (ga >= begin && ga + 16 <= end) {
+              *reinterpret_cast<uint4*>(orow + ga) = va;
+            } else {  // a span edge: only this span's positions
+              const int lo = static_cast<int>(max(ga, begin) - ga);
+              const int hi = static_cast<int>(min(ga + 16, end) - ga);
+              if (lo < hi) store_bytes(orow + ga, va, lo, hi);
+            }
+          }
+          // Granule B at p - c + 16: own last c bytes, written by the lane that
+          // holds the span's last position.
+          if (c && p < end && end <= p + 16 && ga + 16 < end) {
+            store_bytes(orow + ga + 16, realign(o[r], make_uint4(0, 0, 0, 0), 16 - c), 0,
+                        static_cast<int>(end - ga - 16));
+          }
         }
+        __syncwarp();  // carry_out written before the next tile reads it
       }
     }
   }
 }
 
-bool aligned16(const void* p, long long bstride, long long S) {
-  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (bstride % 16 == 0) && (S % 16 == 0);
+
+// ---- staged variant: a per-warp cp.async ring of covering granules ---------
+constexpr int kGranules = kTile / 16 + 1;             // 33 granules cover a tile of a row
+constexpr int kRowSpan = 16 * kGranules;              // 528
+constexpr int kStageBytes = kRowBatch * kRowSpan;     // 2,112
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+template <bool kNibble, int kStages, int kRingWarps, bool kLookup>
+__global__ void __launch_bounds__(32 * kRingWarps)
+rs_gf_ring_kernel(const uint8_t* __restrict__ x, long long x_bstride,
+                  const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
+                  long long out_bstride, int K, int R, long long S, long long span_tiles,
+                  long long spans_per_row, long long items) {
+  constexpr int kEntries = kNibble ? 32 : 256;
+  constexpr int kRingThreads = 32 * kRingWarps;
+  constexpr int kWarpRing = kStages * kStageBytes;
+  extern __shared__ uint4 smem[];
+  uint4* carry = smem;                                                // [kRingWarps][2][4]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem + kRingWarps * 8);  // [kRingWarps][kWarpRing]
+  uint32_t* tab = reinterpret_cast<uint32_t*>(ring + kRingWarps * kWarpRing);
+  const int G = (R + 3) / 4;
+  for (int i = threadIdx.x; i < G * K * kEntries; i += kRingThreads) tab[i] = table[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint8_t* wring = ring + warp * kWarpRing;
+  const uint32_t wring_s = static_cast<uint32_t>(__cvta_generic_to_shared(wring));
+  const int nb = (K + kRowBatch - 1) / kRowBatch;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kRingWarps;
+  for (long long item = static_cast<long long>(blockIdx.x) * kRingWarps + warp; item < items;
+       item += n_warps) {
+    const long long b = item / spans_per_row;
+    const long long begin = (item - b * spans_per_row) * span_tiles * kTile;
+    const long long end = min(S, begin + span_tiles * kTile);
+    const uint8_t* xb = x + b * x_bstride;
+    uint8_t* ob = out + b * out_bstride;
+    const int tiles = static_cast<int>((end - begin + kTile - 1) / kTile);
+    const int steps = G * tiles * nb;  // (g, tile, row batch), in that order
+
+    // Load cursor: the row batch and tile of step `ls`.
+    int ls = 0, lj = 0;
+    long long lt0 = begin;
+    auto issue = [&]() {
+      if (ls < steps) {
+        const uint32_t dst = wring_s + (ls % kStages) * kStageBytes;
+#pragma unroll
+        for (int i = 0; i < kRowBatch; ++i) {
+          const int k = lj * kRowBatch + i;
+          if (k < K) {
+            const uint8_t* row = xb + static_cast<long long>(k) * S;
+            const long long g0 = lt0 - static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+            if (g0 + 16 * lane < end) cp_async16(dst + i * kRowSpan + 16 * lane, row + g0 + 16 * lane);
+            if (lane == 0 && g0 + kTile < end) cp_async16(dst + i * kRowSpan + kTile, row + g0 + kTile);
+          }
+        }
+        ++ls;
+        if (++lj == nb) {
+          lj = 0;
+          lt0 += kTile;
+          if (lt0 >= end) lt0 = begin;
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) issue();
+
+    int parity = 0, j = 0, g = 0;
+    long long t0 = begin;
+    uint32_t acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0;
+    for (int step = 0; step < steps; ++step) {
+      cp_async_wait<kStages - 2>();
+      __syncwarp();  // step's granules landed for every lane; step-1's stage is free
+      issue();
+      const uint8_t* stage = wring + (step % kStages) * kStageBytes;
+#pragma unroll
+      for (int i = 0; i < kRowBatch; ++i) {
+        const int k = j * kRowBatch + i;
+        if (k < K) {
+          const int a = static_cast<int>(reinterpret_cast<uintptr_t>(xb + static_cast<long long>(k) * S) & 15);
+          const uint4* src = reinterpret_cast<const uint4*>(stage + i * kRowSpan);
+          const uint4 w = realign(src[lane], src[lane + 1], a);
+          if (kLookup) {
+            lookup16<kNibble>(acc, w, tab + (g * K + k) * kEntries);
+          } else {
+            acc[0] ^= w.x; acc[5] ^= w.y; acc[10] ^= w.z; acc[15] ^= w.w;
+          }
+        }
+      }
+      if (++j < nb) continue;
+      j = 0;
+
+      const long long p = t0 + 16 * lane;
+      uint4 o[4];
+      transpose(acc, o);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0;
+      uint4* carry_in = carry + (warp * 2 + (parity ^ 1)) * 4;
+      uint4* carry_out = carry + (warp * 2 + parity) * 4;
+      const int rows = min(4, R - 4 * g);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (r >= rows) break;
+        uint8_t* orow = ob + static_cast<long long>(4 * g + r) * S;
+        const int c = static_cast<int>(reinterpret_cast<uintptr_t>(orow) & 15);
+        const int first = (16 - c) >> 2;
+        uint4 prev = o[r];
+        if (first <= 0) prev.x = __shfl_up_sync(kFull, o[r].x, 1);
+        if (first <= 1) prev.y = __shfl_up_sync(kFull, o[r].y, 1);
+        if (first <= 2) prev.z = __shfl_up_sync(kFull, o[r].z, 1);
+        if (first <= 3) prev.w = __shfl_up_sync(kFull, o[r].w, 1);
+        if (lane == 0) prev = carry_in[r];
+        if (lane == 31) carry_out[r] = o[r];
+        const long long ga = p - c;
+        if (ga < end) {
+          const uint4 va = c ? realign(prev, o[r], 16 - c) : o[r];
+          if (ga >= begin && ga + 16 <= end) {
+            *reinterpret_cast<uint4*>(orow + ga) = va;
+          } else {
+            const int lo = static_cast<int>(max(ga, begin) - ga);
+            const int hi = static_cast<int>(min(ga + 16, end) - ga);
+            if (lo < hi) store_bytes(orow + ga, va, lo, hi);
+          }
+        }
+        if (c && p < end && end <= p + 16 && ga + 16 < end) {
+          store_bytes(orow + ga + 16, realign(o[r], make_uint4(0, 0, 0, 0), 16 - c), 0,
+                      static_cast<int>(end - ga - 16));
+        }
+      }
+      parity ^= 1;
+      t0 += kTile;
+      if (t0 >= end) {
+        t0 = begin;
+        ++g;
+      }
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+  }
+}
+
+template <bool kNibble, int kStages, int kRingWarps, bool kLookup = true>
+int launch_ring(const uint8_t* x, long long x_bstride, const uint32_t* table, uint8_t* out,
+                long long out_bstride, int B, int K, int R, long long S, cudaStream_t stream) {
+  if (B == 0 || S == 0 || R == 0) return 0;
+  constexpr int kEntries = kNibble ? 32 : 256;
+  constexpr int kRingThreads = 32 * kRingWarps;
+  constexpr int kWarpRing = kStages * kStageBytes;
+  auto kernel = rs_gf_ring_kernel<kNibble, kStages, kRingWarps, kLookup>;
+  const size_t smem = kRingWarps * 8 * sizeof(uint4) + kRingWarps * kWarpRing +
+                      static_cast<size_t>((R + 3) / 4) * K * kEntries * sizeof(uint32_t);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRingThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long resident_warps = static_cast<long long>(per_sm) * sms * kRingWarps;
+  const long long tiles = (S + kTile - 1) / kTile;
+  const long long span_tiles = (tiles * B + resident_warps - 1) / resident_warps;
+  const long long spans_per_row = (tiles + span_tiles - 1) / span_tiles;
+  const long long items = spans_per_row * B;
+  const long long max_blocks = static_cast<long long>(per_sm) * sms;
+  const long long blocks = std::min((items + kRingWarps - 1) / kRingWarps, max_blocks);
+  kernel<<<static_cast<unsigned>(blocks), kRingThreads, smem, stream>>>(
+      x, x_bstride, table, out, out_bstride, K, R, S, span_tiles, spans_per_row, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kNibble>
+int launch(const uint8_t* x, long long x_bstride, const uint32_t* table, uint8_t* out,
+           long long out_bstride, int B, int K, int R, long long S, cudaStream_t stream) {
+  if (B == 0 || S == 0 || R == 0) return 0;
+  constexpr int kEntries = kNibble ? 32 : 256;
+  const size_t smem = kWarps * 8 * sizeof(uint4) +
+                      static_cast<size_t>((R + 3) / 4) * K * kEntries * sizeof(uint32_t);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rs_gf_apply_kernel<kNibble>, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long resident_warps = static_cast<long long>(per_sm) * sms * kWarps;
+  const long long tiles = (S + kTile - 1) / kTile;
+  // Spans of whole tiles, as short as keeps the warps of all batch items
+  // within what the card holds at once.
+  const long long span_tiles = (tiles * B + resident_warps - 1) / resident_warps;
+  const long long spans_per_row = (tiles + span_tiles - 1) / span_tiles;
+  const long long items = spans_per_row * B;
+  const long long max_blocks = static_cast<long long>(per_sm) * sms;
+  const long long blocks = std::min((items + kWarps - 1) / kWarps, max_blocks);
+  rs_gf_apply_kernel<kNibble><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      x, x_bstride, table, out, out_bstride, K, R, S, span_tiles, spans_per_row, items);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: [B, K, S] u8 with rows contiguous, batch stride x_bstride (bytes).
-// table: [ceil(R/4), K, 256] u32 product tables. out: [B, R, S] u8 with rows
-// contiguous, batch stride out_bstride. Returns the cudaError_t of the launch.
+// x: [B, K, S] u8 with rows contiguous (any alignment), batch stride x_bstride
+// (bytes). table: [ceil(R/4), K, 32] u32 split-nibble product tables. out:
+// [B, R, S] u8 with rows contiguous, batch stride out_bstride. Returns the
+// cudaError_t of the launch.
 extern "C" int rs_gf_apply_launch(const uint8_t* x, long long x_bstride, const uint32_t* table,
                                   uint8_t* out, long long out_bstride, int B, int K, int R,
                                   long long S, cudaStream_t stream) {
-  if (B == 0 || S == 0 || R == 0) return 0;
-  const size_t smem = static_cast<size_t>((R + 3) / 4) * K * 256 * sizeof(uint32_t);
-  const long long chunks = (S + kBytes - 1) / kBytes;
-  const dim3 grid(static_cast<unsigned>((chunks + kThreads - 1) / kThreads), static_cast<unsigned>(B));
-  if (aligned16(x, x_bstride, S) && aligned16(out, out_bstride, S)) {
-    rs_gf_apply_kernel<true><<<grid, kThreads, smem, stream>>>(x, x_bstride, table, out, out_bstride, K, R, S);
-  } else {
-    rs_gf_apply_kernel<false><<<grid, kThreads, smem, stream>>>(x, x_bstride, table, out, out_bstride, K, R, S);
+  return launch<true>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+}
+
+// The same map with [ceil(R/4), K, 256] whole-byte product tables.
+extern "C" int rs_gf_apply_byte_table_launch(const uint8_t* x, long long x_bstride,
+                                             const uint32_t* table, uint8_t* out,
+                                             long long out_bstride, int B, int K, int R,
+                                             long long S, cudaStream_t stream) {
+  return launch<false>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+}
+
+// The staged variants, by number (tools/rs_probe.py times them).
+extern "C" int rs_gf_variant_launch(int variant, const uint8_t* x, long long x_bstride,
+                                    const uint32_t* table, uint8_t* out, long long out_bstride,
+                                    int B, int K, int R, long long S, cudaStream_t stream) {
+  switch (variant) {
+    case 0: return launch_ring<false, 4, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    case 1: return launch_ring<false, 3, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    case 2: return launch_ring<false, 2, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    case 3: return launch_ring<true, 3, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    case 4: return launch_ring<false, 3, 8>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    case 5: return launch_ring<false, 3, 4, false>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    case 6: return launch_ring<true, 4, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* rs_gf_error_string(int err) {

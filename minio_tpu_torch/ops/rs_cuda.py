@@ -38,10 +38,13 @@ KERNEL = Kernel(
     ],
     error_symbol="rs_gf_error_string",
 )
+# The same map reading whole-byte tables (product_table); timed beside
+# KERNEL by tools/rs_probe.py.
+BYTE_TABLE_KERNEL = Kernel("rs_gf_apply_byte_table_launch", KERNEL.argtypes, error_symbol="rs_gf_error_string")
 
-# The kernel stages the product tables in shared memory without opting in
-# to more than the default 48 KiB a block may use.
-_MAX_TABLE_BYTES = 48 * 1024
+# The kernel stages the product tables (and 1 KiB of its own) in shared
+# memory without opting in to more than the default 48 KiB a block may use.
+_MAX_TABLE_BYTES = 47 * 1024
 _MAX_BATCH = 65535  # grid.y
 
 _TABLES: dict[tuple, torch.Tensor] = {}
@@ -62,12 +65,22 @@ def product_table(coeffs: np.ndarray) -> np.ndarray:
     return table
 
 
-def _device_table(coeffs: np.ndarray, device: torch.device) -> torch.Tensor:
-    key = (coeffs.shape, coeffs.tobytes(), str(device))
+def nibble_table(coeffs: np.ndarray) -> np.ndarray:
+    """[R, K] GF(2^8) coefficients -> [ceil(R/4), K, 32] u32 split-nibble
+    tables: byte j of [g, k, n] is gfmul(coeffs[4g + j, k], n) and of
+    [g, k, 16 + n] is gfmul(coeffs[4g + j, k], n << 4), for n < 16. GF(2^8)
+    multiplication is linear over GF(2), so gfmul(c, v) is the XOR of the
+    two entries of v's low and high nibble."""
+    table = product_table(coeffs)
+    return np.concatenate([table[:, :, :16], table[:, :, 0:256:16]], axis=2)
+
+
+def _device_table(coeffs: np.ndarray, device: torch.device, build=nibble_table) -> torch.Tensor:
+    key = (coeffs.shape, coeffs.tobytes(), str(device), build.__name__)
     with _TABLES_LOCK:
         t = _TABLES.get(key)
     if t is None:
-        host = product_table(coeffs).view(np.int32)  # torch has no uint32 copy kernel on every build
+        host = build(coeffs).view(np.int32)  # torch has no uint32 copy kernel on every build
         t = torch.from_numpy(host).to(device)
         with _TABLES_LOCK:
             if len(_TABLES) >= _MAX_CACHED_TABLES:
@@ -106,7 +119,7 @@ def apply(x: torch.Tensor, coeffs, out: torch.Tensor | None = None) -> torch.Ten
         raise ValueError("x rows must be contiguous")
     if b > _MAX_BATCH:
         raise ValueError(f"batch {b} exceeds {_MAX_BATCH}")
-    if -(-r // 4) * k * 256 * 4 > _MAX_TABLE_BYTES:
+    if -(-r // 4) * k * 32 * 4 > _MAX_TABLE_BYTES:
         raise ValueError(f"[{r}, {k}] coefficients exceed the kernel's table budget")
     if out is None:
         out = torch.empty((b, r, s), dtype=torch.uint8, device=x.device)
@@ -125,8 +138,10 @@ def apply(x: torch.Tensor, coeffs, out: torch.Tensor | None = None) -> torch.Ten
     # The cached table outlives any one stream's use of it: tell the
     # allocator, so an evicted table is not reused under a running kernel.
     table.record_stream(stream)
-    KERNEL.launch(
-        x.data_ptr(), x.stride(0), table.data_ptr(), out.data_ptr(), out.stride(0),
-        b, k, r, s, stream.cuda_stream,
-    )
+    # The launch queries the current device for its grid: make it x's.
+    with torch.cuda.device(x.device):
+        KERNEL.launch(
+            x.data_ptr(), x.stride(0), table.data_ptr(), out.data_ptr(), out.stride(0),
+            b, k, r, s, stream.cuda_stream,
+        )
     return out

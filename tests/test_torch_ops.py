@@ -123,6 +123,132 @@ def test_rs_product_table_bytes():
             np.testing.assert_array_equal((table[0, k] >> (8 * r)) & 0xFF, mul[coeffs[r, k]])
 
 
+def test_rs_nibble_tables_match_mul_table_exhaustively():
+    # Every (c, v): a [256, 1] coefficient column puts c = 0..255 in the
+    # four row bytes of 64 table groups.
+    coeffs = np.arange(256, dtype=np.uint8)[:, None]
+    table = rs_cuda.nibble_table(coeffs)  # [64, 1, 32]
+    v = np.arange(256)
+    words = table[:, 0, v & 15] ^ table[:, 0, 16 + (v >> 4)]  # [64, 256]
+    got = np.stack([(words >> np.uint32(8 * j)) & 0xFF for j in range(4)], axis=1).reshape(256, 256)
+    np.testing.assert_array_equal(got, rs_matrix.gf.mul_table())
+
+
+_TILE = 512  # kTile in csrc/rs_gf.cu: 16 positions for each of 32 lanes
+
+
+def _realign(lo, hi, a: int):
+    """Bytes a..a+15 (0 <= a <= 16) of lo ++ hi, [32, 4] u32 words each, as
+    the kernel's realign(): word select, then __funnelshift_r."""
+    c = np.concatenate([lo, hi, np.zeros_like(lo[:, :1])], axis=1)[:, a >> 2 :][:, :5]
+    return np.stack([_funnel_r(c[:, i], c[:, i + 1], 8 * (a & 3)) for i in range(4)], axis=1)
+
+
+def _rs_kernel_model(xbuf, x_base, obuf, o_base, coeffs, s, span_tiles, exchange=True):
+    """One batch item of csrc/rs_gf.cu, lane by lane: input row k starts at
+    byte x_base + k*s of xbuf, output row r at o_base + r*s of obuf; both
+    buffers start on a 16-byte boundary. Loads and full stores touch whole
+    aligned granules; bytes past a lane's granule come from lane t+1 (lane 31
+    loads its own), output granules take lane t-1's last bytes, and the first
+    lane of a tile takes them from the previous tile's last lane. `exchange`
+    False drops the neighbour exchange: the kernel without its shuffles."""
+    r_rows, k_rows = coeffs.shape
+    table = rs_cuda.nibble_table(coeffs).astype(np.uint64)
+    lane = np.arange(32)
+    tiles = -(-s // _TILE)
+    for begin in range(0, tiles * _TILE, span_tiles * _TILE):
+        end = min(s, begin + span_tiles * _TILE)
+        for g in range(table.shape[0]):
+            carry = [np.zeros(4, np.uint64)] * 4
+            for t0 in range(begin, end, _TILE):
+                p = t0 + 16 * lane
+                acc = np.zeros((32, 16), np.uint64)
+                for k in range(k_rows):
+                    a = (x_base + k * s) & 15
+                    gs = x_base + k * s + p - a
+                    q = np.zeros((32, 16), np.uint8)
+                    for t in np.nonzero(p - a < end)[0]:
+                        q[t] = xbuf[gs[t] : gs[t] + 16]
+                    q = q.view("<u4").astype(np.uint64)
+                    n = np.zeros_like(q)
+                    if exchange:
+                        n[:31] = q[1:]
+                    if a and p[31] + 16 - a < end:
+                        n[31] = xbuf[gs[31] + 16 : gs[31] + 32].view("<u4")
+                    w = _realign(q, n, a)
+                    for j in range(16):
+                        v = (w[:, j >> 2] >> _U64(8 * (j & 3))) & _U64(0xFF)
+                        acc[:, j] ^= table[g, k, (v & _U64(15)).astype(int)]
+                        acc[:, j] ^= table[g, k, 16 + (v >> _U64(4)).astype(int)]
+                o = np.zeros((4, 32, 4), np.uint64)
+                for qd in range(4):
+                    a0, a1, a2, a3 = (acc[:, 4 * qd + i] for i in range(4))
+                    t_0, t_1 = _byte_perm(a0, a1, 0x5140), _byte_perm(a0, a1, 0x7362)
+                    t_2, t_3 = _byte_perm(a2, a3, 0x5140), _byte_perm(a2, a3, 0x7362)
+                    o[0, :, qd], o[1, :, qd] = _byte_perm(t_0, t_2, 0x5410), _byte_perm(t_0, t_2, 0x7632)
+                    o[2, :, qd], o[3, :, qd] = _byte_perm(t_1, t_3, 0x5410), _byte_perm(t_1, t_3, 0x7632)
+                for r in range(min(4, r_rows - 4 * g)):
+                    row = o_base + (4 * g + r) * s
+                    c = row & 15
+                    prev = np.zeros_like(o[r])
+                    if exchange:
+                        prev[1:] = o[r][:-1]
+                    prev[0] = carry[r]
+                    carry[r] = o[r][31].copy()
+                    va = _realign(prev, o[r], 16 - c).astype("<u4").view(np.uint8).reshape(32, 16)
+                    own = o[r].astype("<u4").view(np.uint8).reshape(32, 16)
+                    for t in range(32):
+                        ga = int(p[t]) - c
+                        if ga < end:
+                            lo, hi = max(ga, begin) - ga, min(ga + 16, end) - ga
+                            obuf[row + ga + lo : row + ga + hi] = va[t, lo:hi]
+                        if c and p[t] < end <= p[t] + 16 and ga + 16 < end:
+                            obuf[row + ga + 16 : row + end] = own[t, 16 - c : 16 - c + end - ga - 16]
+
+
+_MODEL_S = [1, 3, 15, 16, 17, 4095, 4096, 87_381, 87_382]
+
+
+@pytest.mark.parametrize("s", _MODEL_S)
+def test_rs_kernel_realignment_model_matches_plain_and_pallas(s):
+    k, m = 12, 4
+    data = np.random.default_rng(s).integers(0, 256, (1, k, s), dtype=np.uint8)
+    want = np.asarray(RSPallasCodec(k, m).encode(data))[0]
+    np.testing.assert_array_equal(rs_cuda.plain(torch.from_numpy(data), rs_matrix.parity_matrix(k, m))[0].numpy(), want)
+    present = tuple(i not in (0, 5, 12, 15) for i in range(k + m))
+    for shift in range(16):
+        # Input rows `shift` bytes past a granule, output rows elsewhere, and
+        # R = 1..4 rows; spans of 1-3 tiles put span edges inside rows.
+        o_shift, span = (7 * shift + 3) % 16, 1 + shift % 3
+        r = 1 + shift % 4
+        coeffs = rs_matrix.parity_matrix(k, m) if r == 4 else rs_matrix.reconstruct_rows(k, m, present, (0, 5, 12)[:r])
+        xbuf = np.zeros(16 + k * s + 32, np.uint8)
+        xbuf[shift : shift + k * s] = data[0].reshape(-1)
+        obuf = np.full(16 + r * s + 32, 0xA5, np.uint8)
+        _rs_kernel_model(xbuf, shift, obuf, o_shift, coeffs, s, span)
+        got = obuf[o_shift : o_shift + r * s].reshape(r, s)
+        ref = want if r == 4 else rs_cuda.plain(torch.from_numpy(data), coeffs)[0].numpy()
+        np.testing.assert_array_equal(got, ref, err_msg=f"shift {shift}, out shift {o_shift}, R {r}")
+        # Nothing outside the output rows was written.
+        assert (obuf[:o_shift] == 0xA5).all() and (obuf[o_shift + r * s :] == 0xA5).all()
+
+
+def test_rs_kernel_model_fails_without_neighbour_exchange():
+    k, m, s = 12, 4, 4096
+    data = np.random.default_rng(9).integers(0, 256, (k, s), dtype=np.uint8)
+    coeffs = rs_matrix.parity_matrix(k, m)
+    want = rs_cuda.plain(torch.from_numpy(data[None]), coeffs)[0].numpy()
+    xbuf = np.zeros(16 + k * s + 32, np.uint8)
+    xbuf[6 : 6 + k * s] = data.reshape(-1)
+    outs = {}
+    for exchange in (True, False):
+        obuf = np.zeros(16 + m * s + 32, np.uint8)
+        _rs_kernel_model(xbuf, 6, obuf, 10, coeffs, s, 2, exchange=exchange)
+        outs[exchange] = obuf[10 : 10 + m * s].reshape(m, s)
+    np.testing.assert_array_equal(outs[True], want)
+    assert not np.array_equal(outs[False], want)
+
+
 def test_rs_apply_rejects_bad_shapes():
     with pytest.raises(ValueError):
         rs_cuda.apply(torch.zeros((2, 12, 8), dtype=torch.uint8), np.zeros((4, 11), np.uint8))
@@ -411,6 +537,22 @@ def test_cuda_rs_kernel_matches_plain(cuda_device, s):
     x = torch.randint(0, 256, (4, 12, s), dtype=torch.uint8, generator=gen).to(cuda_device)
     pm = rs_matrix.parity_matrix(12, 4)
     assert torch.equal(rs_cuda.apply(x, pm), rs_cuda.plain(x, pm))
+    # The fused encode's strided out view: parity rows of an all-shards tensor.
+    shards = torch.randint(0, 256, (4, 16, s), dtype=torch.uint8, generator=gen).to(cuda_device)
+    rs_cuda.apply(shards[:, :12], pm, out=shards[:, 12:])
+    assert torch.equal(shards[:, 12:], rs_cuda.plain(shards[:, :12], pm))
+    # R = 1..4 reconstruct rows on rows 1..15 bytes past a 16-byte boundary,
+    # in and out.
+    present = tuple(i not in (0, 5, 12, 15) for i in range(16))
+    xbuf = torch.randint(0, 256, (16 + 2 * 12 * s,), dtype=torch.uint8, generator=gen).to(cuda_device)
+    obuf = torch.zeros(16 + 2 * 4 * s, dtype=torch.uint8, device=cuda_device)
+    for off in range(1, 16):
+        r = 1 + off % 4
+        coeffs = rs_matrix.reconstruct_rows(12, 4, present, (0, 5, 12, 15)[:r])
+        xv = xbuf[off : off + 2 * 12 * s].view(2, 12, s)
+        ov = obuf[(7 * off + 3) % 16 :][: 2 * r * s].view(2, r, s)
+        rs_cuda.apply(xv, coeffs, out=ov)
+        assert torch.equal(ov, rs_cuda.plain(xv, coeffs)), f"offset {off}, R {r}"
 
 
 # N = 16 is the GET verify batch (one block), 17 leaves a part-filled block,
