@@ -10,8 +10,8 @@
 // _apply_sched), which ran the same map as a compiled XOR schedule over bit
 // planes. A schedule compiled into the kernel would need one build per loss
 // pattern, so here the coefficients are data: the host expands C into
-// product tables (ops/rs_cuda.py) that every block copies into shared memory
-// once.
+// product tables (ops/rs_cuda.py::product_table) that every block copies
+// into shared memory once.
 //
 // Bound: the map reads B*K*S bytes and writes B*R*S, so the card's memory
 // rate (3.35 TB/s) bounds it. The design:
@@ -20,25 +20,29 @@
 //   (S = ceil(1 MiB / 12) = 87,382 is 6 mod 16, and the fused encode passes
 //   views), but a row's base offset mod 16 is the same for every lane of a
 //   warp. A warp owns 512 consecutive positions of a row per tile, 16 per
-//   lane. Each lane loads the aligned granule holding its first byte and
-//   takes the bytes past it from lane t+1 (__shfl_down_sync of the words it
-//   needs, then __funnelshift_r); the last lane loads that granule itself.
-//   Output runs the other way: lane t assembles the aligned output granule
-//   holding its first byte from lane t-1's last bytes (__shfl_up_sync) and its
-//   own, and writes one uint4. A warp walks a contiguous span of tiles and
-//   carries its last lane's bytes to the next tile's first lane through shared
-//   memory, so only the two granules at a span's edges take narrow stores
-//   (aligned 8/4/2/1-byte pieces). Neighbouring spans write disjoint bytes of
-//   a shared edge granule. A granule holding a byte of a row lies inside the
-//   allocation (CUDA allocations are >= 256-byte aligned), so loads of
-//   covering granules never leave it.
-// - Four output rows per lookup: table word [g][k][.] packs gfmul(C[4g+j][k], v)
-//   in byte j, so one lookup serves four output rows; the 16 per-position
-//   accumulators are turned into four rows of 16 bytes by 4x4 byte transposes
-//   (__byte_perm).
-// - Persistent grid: as many blocks as fit the card at once (or the work, if
-//   less). Each block copies the tables once, and its warps walk spans of
-//   whole tiles, sized so the spans of all batch items fill the resident warps.
+//   lane. It copies the 33 aligned 16-byte granules that cover a tile of an
+//   input row into a per-warp cp.async ring in shared memory (only granules
+//   that hold a byte of the row: CUDA allocations are >= 256-byte aligned,
+//   so those never leave the allocation), a few rows ahead of the lookups.
+//   A lane reads granules t and t+1 of a row and funnel-shifts its 16 bytes
+//   out of them. Output runs the other way: lane t assembles the aligned
+//   output granule holding its first byte from lane t-1's last bytes
+//   (__shfl_up_sync) and its own, and writes one uint4. A warp walks a
+//   contiguous span of tiles and carries its last lane's bytes to the next
+//   tile's first lane through shared memory, so only the two granules at a
+//   span's edges take narrow stores (aligned 8/4/2/1-byte pieces).
+//   Neighbouring spans write disjoint bytes of a shared edge granule.
+// - Four output rows per lookup: table word [g][k][v] packs gfmul(C[4g+j][k],
+//   v) in byte j, so one shared-memory load per input byte serves four output
+//   rows; the 16 per-position accumulators are turned into four rows of 16
+//   bytes by 4x4 byte transposes (__byte_perm).
+// - Persistent grid: as many blocks as fit the card at once, or the work if
+//   less. Each block copies the tables once (cp.async), and its warps walk
+//   spans of whole tiles, sized so the spans of all batch items fill the
+//   resident warps.
+//
+// Positions within a row and row offsets within a batch item are 32-bit:
+// the wrapper keeps K*S and R*S below 2^31.
 
 #include <algorithm>
 #include <cstdint>
@@ -46,10 +50,10 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 512;    // row positions a warp handles per step, 16 a lane
-constexpr int kRowBatch = 4;  // input rows whose granule loads are issued together
+constexpr int kTile = 512;                   // row positions a warp handles per tile, 16 a lane
+constexpr int kGranules = kTile / 16 + 1;    // 33 aligned granules cover a tile of a row
+constexpr int kRowSpan = 16 * kGranules;     // 528 ring bytes per row per stage
+constexpr int kEntries = 256;                // table words per (row group, input row)
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Bytes a..a+15 (0 <= a <= 16) of the 32 bytes lo ++ hi.
@@ -84,21 +88,6 @@ __device__ __forceinline__ void store_bytes(uint8_t* g, uint4 v, int lo, int hi)
   if (i + 1 <= hi) g[i] = static_cast<uint8_t>(piece(i));
 }
 
-// acc[j] ^= the product word of byte j of w, for j in 0..15.
-template <bool kNibble>
-__device__ __forceinline__ void lookup16(uint32_t (&acc)[16], uint4 w, const uint32_t* t) {
-  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const uint32_t v = ws[j >> 2] >> (8 * (j & 3));
-    if (kNibble) {
-      acc[j] ^= t[v & 15] ^ t[16 + ((v >> 4) & 15)];
-    } else {
-      acc[j] ^= t[v & 255];
-    }
-  }
-}
-
 // Byte r of acc[4q + i] is row r's byte at position 4q + i: a 4x4 byte
 // transpose per quad gives each row's four words.
 __device__ __forceinline__ void transpose(const uint32_t (&acc)[16], uint4 (&o)[4]) {
@@ -117,124 +106,6 @@ __device__ __forceinline__ void transpose(const uint32_t (&acc)[16], uint4 (&o)[
   for (int r = 0; r < 4; ++r) o[r] = make_uint4(rows[r][0], rows[r][1], rows[r][2], rows[r][3]);
 }
 
-template <bool kNibble>
-__global__ void __launch_bounds__(kThreads)
-rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
-                   const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
-                   long long out_bstride, int K, int R, long long S, long long span_tiles,
-                   long long spans_per_row, long long items) {
-  constexpr int kEntries = kNibble ? 32 : 256;
-  extern __shared__ uint4 smem[];
-  // [kWarps][2][4]: the last lane's output granules of a warp's previous tile
-  // (by tile parity), read by the next tile's first lane.
-  uint4* carry = smem;
-  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + kWarps * 8);
-  const int G = (R + 3) / 4;
-  for (int i = threadIdx.x; i < G * K * kEntries; i += kThreads) tab[i] = table[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long n_warps = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long item = static_cast<long long>(blockIdx.x) * kWarps + warp; item < items;
-       item += n_warps) {
-    const long long b = item / spans_per_row;
-    const long long begin = (item - b * spans_per_row) * span_tiles * kTile;
-    const long long end = min(S, begin + span_tiles * kTile);
-    const uint8_t* xb = x + b * x_bstride;
-    uint8_t* ob = out + b * out_bstride;
-
-    int parity = 0;
-    for (int g = 0; g < G; ++g) {
-      const int rows = min(4, R - 4 * g);
-      for (long long t0 = begin; t0 < end; t0 += kTile, parity ^= 1) {
-        const long long p = t0 + 16 * lane;  // this lane's first position
-        uint32_t acc[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) acc[j] = 0;
-
-        for (int k0 = 0; k0 < K; k0 += kRowBatch) {
-          uint4 q[kRowBatch], nx[kRowBatch];
-          int al[kRowBatch];
-#pragma unroll
-          for (int i = 0; i < kRowBatch; ++i) {
-            q[i] = nx[i] = make_uint4(0, 0, 0, 0);
-            al[i] = 0;
-            if (k0 + i < K) {
-              const uint8_t* row = xb + static_cast<long long>(k0 + i) * S;
-              const int a = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
-              const uint8_t* gp = row + p - a;  // aligned granule holding position p
-              al[i] = a;
-              if (p - a < end) q[i] = __ldg(reinterpret_cast<const uint4*>(gp));
-              if (lane == 31 && a && p + 16 - a < end) nx[i] = __ldg(reinterpret_cast<const uint4*>(gp + 16));
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kRowBatch; ++i) {
-            if (k0 + i < K) {
-              const int a = al[i];
-              // Words [0, ceil(a/4)) of lane t+1's granule.
-              const int need = (a + 3) >> 2;
-              uint4 n = q[i];
-              if (need > 0) n.x = __shfl_down_sync(kFull, q[i].x, 1);
-              if (need > 1) n.y = __shfl_down_sync(kFull, q[i].y, 1);
-              if (need > 2) n.z = __shfl_down_sync(kFull, q[i].z, 1);
-              if (need > 3) n.w = __shfl_down_sync(kFull, q[i].w, 1);
-              if (lane == 31) n = nx[i];
-              lookup16<kNibble>(acc, realign(q[i], n, a), tab + (g * K + k0 + i) * kEntries);
-            }
-          }
-        }
-
-        uint4 o[4];
-        transpose(acc, o);
-        uint4* carry_in = carry + (warp * 2 + (parity ^ 1)) * 4;
-        uint4* carry_out = carry + (warp * 2 + parity) * 4;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if (r >= rows) break;
-          uint8_t* orow = ob + static_cast<long long>(4 * g + r) * S;
-          const int c = static_cast<int>(reinterpret_cast<uintptr_t>(orow) & 15);
-          // Words [first, 4) of lane t-1's row bytes: its last c bytes.
-          const int first = (16 - c) >> 2;
-          uint4 prev = o[r];
-          if (first <= 0) prev.x = __shfl_up_sync(kFull, o[r].x, 1);
-          if (first <= 1) prev.y = __shfl_up_sync(kFull, o[r].y, 1);
-          if (first <= 2) prev.z = __shfl_up_sync(kFull, o[r].z, 1);
-          if (first <= 3) prev.w = __shfl_up_sync(kFull, o[r].w, 1);
-          if (lane == 0) prev = carry_in[r];  // garbage on a span's first tile: not stored
-          if (lane == 31) carry_out[r] = o[r];
-          // Granule A at position p - c: prev's last c bytes, then own first 16 - c.
-          const long long ga = p - c;
-          if (ga < end) {
-            const uint4 va = c ? realign(prev, o[r], 16 - c) : o[r];
-            if (ga >= begin && ga + 16 <= end) {
-              *reinterpret_cast<uint4*>(orow + ga) = va;
-            } else {  // a span edge: only this span's positions
-              const int lo = static_cast<int>(max(ga, begin) - ga);
-              const int hi = static_cast<int>(min(ga + 16, end) - ga);
-              if (lo < hi) store_bytes(orow + ga, va, lo, hi);
-            }
-          }
-          // Granule B at p - c + 16: own last c bytes, written by the lane that
-          // holds the span's last position.
-          if (c && p < end && end <= p + 16 && ga + 16 < end) {
-            store_bytes(orow + ga + 16, realign(o[r], make_uint4(0, 0, 0, 0), 16 - c), 0,
-                        static_cast<int>(end - ga - 16));
-          }
-        }
-        __syncwarp();  // carry_out written before the next tile reads it
-      }
-    }
-  }
-}
-
-
-// ---- staged variant: a per-warp cp.async ring of covering granules ---------
-constexpr int kGranules = kTile / 16 + 1;             // 33 granules cover a tile of a row
-constexpr int kRowSpan = 16 * kGranules;              // 528
-constexpr int kStageBytes = kRowBatch * kRowSpan;     // 2,112
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
@@ -244,51 +115,61 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-template <bool kNibble, int kStages, int kRingWarps, bool kLookup>
-__global__ void __launch_bounds__(32 * kRingWarps)
-rs_gf_ring_kernel(const uint8_t* __restrict__ x, long long x_bstride,
-                  const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
-                  long long out_bstride, int K, int R, long long S, long long span_tiles,
-                  long long spans_per_row, long long items) {
-  constexpr int kEntries = kNibble ? 32 : 256;
-  constexpr int kRingThreads = 32 * kRingWarps;
+__device__ __forceinline__ int align_of(const uint8_t* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// kStages ring stages of kRows input rows per warp; kWarps warps a block.
+template <int kStages, int kRows, int kWarps, int kMinBlocks, bool kLookup>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
+                   const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
+                   long long out_bstride, int K, int R, int S, int span_tiles, int spans_per_row,
+                   long long items) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kStageBytes = kRows * kRowSpan;
   constexpr int kWarpRing = kStages * kStageBytes;
-  extern __shared__ uint4 smem[];
-  uint4* carry = smem;                                                // [kRingWarps][2][4]
-  uint8_t* ring = reinterpret_cast<uint8_t*>(smem + kRingWarps * 8);  // [kRingWarps][kWarpRing]
-  uint32_t* tab = reinterpret_cast<uint32_t*>(ring + kRingWarps * kWarpRing);
+  extern __shared__ __align__(1024) uint4 smem[];
   const int G = (R + 3) / 4;
-  for (int i = threadIdx.x; i < G * K * kEntries; i += kRingThreads) tab[i] = table[i];
-  __syncthreads();
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);                       // [G][K][256]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(tab + G * K * kEntries);      // [kWarps][kWarpRing]
+  uint4* carry = reinterpret_cast<uint4*>(ring + kWarps * kWarpRing);      // [kWarps][2][4]
+
+  {
+    const uint32_t tab_s = static_cast<uint32_t>(__cvta_generic_to_shared(tab));
+    for (int i = threadIdx.x; i < G * K * kEntries / 4; i += kThreads) cp_async16(tab_s + 16 * i, table + 4 * i);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   uint8_t* wring = ring + warp * kWarpRing;
   const uint32_t wring_s = static_cast<uint32_t>(__cvta_generic_to_shared(wring));
-  const int nb = (K + kRowBatch - 1) / kRowBatch;
-  const long long n_warps = static_cast<long long>(gridDim.x) * kRingWarps;
-  for (long long item = static_cast<long long>(blockIdx.x) * kRingWarps + warp; item < items;
+  const int nb = (K + kRows - 1) / kRows;  // row batches, one ring stage each
+  const long long n_warps = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long item = static_cast<long long>(blockIdx.x) * kWarps + warp; item < items;
        item += n_warps) {
     const long long b = item / spans_per_row;
-    const long long begin = (item - b * spans_per_row) * span_tiles * kTile;
-    const long long end = min(S, begin + span_tiles * kTile);
+    const int begin = static_cast<int>(item - b * spans_per_row) * span_tiles * kTile;
+    const int end = min(S, begin + span_tiles * kTile);
     const uint8_t* xb = x + b * x_bstride;
     uint8_t* ob = out + b * out_bstride;
-    const int tiles = static_cast<int>((end - begin + kTile - 1) / kTile);
-    const int steps = G * tiles * nb;  // (g, tile, row batch), in that order
+    const int tiles = (end - begin + kTile - 1) / kTile;
+    const int steps = G * tiles * nb;  // (row group, tile, row batch), in that order
 
-    // Load cursor: the row batch and tile of step `ls`.
-    int ls = 0, lj = 0;
-    long long lt0 = begin;
+    // Load cursor: the row batch lj and tile lt0 of step ls.
+    int ls = 0, lj = 0, lt0 = begin;
     auto issue = [&]() {
       if (ls < steps) {
         const uint32_t dst = wring_s + (ls % kStages) * kStageBytes;
 #pragma unroll
-        for (int i = 0; i < kRowBatch; ++i) {
-          const int k = lj * kRowBatch + i;
+        for (int i = 0; i < kRows; ++i) {
+          const int k = lj * kRows + i;
           if (k < K) {
-            const uint8_t* row = xb + static_cast<long long>(k) * S;
-            const long long g0 = lt0 - static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+            const uint8_t* row = xb + k * S;
+            const int g0 = lt0 - align_of(row);  // the aligned granule holding position lt0
             if (g0 + 16 * lane < end) cp_async16(dst + i * kRowSpan + 16 * lane, row + g0 + 16 * lane);
             if (lane == 0 && g0 + kTile < end) cp_async16(dst + i * kRowSpan + kTile, row + g0 + kTile);
           }
@@ -305,34 +186,35 @@ rs_gf_ring_kernel(const uint8_t* __restrict__ x, long long x_bstride,
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) issue();
 
-    int parity = 0, j = 0, g = 0;
-    long long t0 = begin;
+    int parity = 0, j = 0, g = 0, t0 = begin;
     uint32_t acc[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] = 0;
     for (int step = 0; step < steps; ++step) {
       cp_async_wait<kStages - 2>();
-      __syncwarp();  // step's granules landed for every lane; step-1's stage is free
+      __syncwarp();  // this step's granules landed for every lane; the last step's stage is free
       issue();
       const uint8_t* stage = wring + (step % kStages) * kStageBytes;
 #pragma unroll
-      for (int i = 0; i < kRowBatch; ++i) {
-        const int k = j * kRowBatch + i;
+      for (int i = 0; i < kRows; ++i) {
+        const int k = j * kRows + i;
         if (k < K) {
-          const int a = static_cast<int>(reinterpret_cast<uintptr_t>(xb + static_cast<long long>(k) * S) & 15);
           const uint4* src = reinterpret_cast<const uint4*>(stage + i * kRowSpan);
-          const uint4 w = realign(src[lane], src[lane + 1], a);
-          if (kLookup) {
-            lookup16<kNibble>(acc, w, tab + (g * K + k) * kEntries);
-          } else {
-            acc[0] ^= w.x; acc[5] ^= w.y; acc[10] ^= w.z; acc[15] ^= w.w;
+          const uint4 w = realign(src[lane], src[lane + 1], align_of(xb + k * S));
+          const uint32_t* t = tab + (g * K + k) * kEntries;
+          const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const uint32_t v = (ws[q >> 2] >> (8 * (q & 3))) & 0xFF;
+            acc[q] ^= kLookup ? t[v] : v;
           }
         }
       }
       if (++j < nb) continue;
       j = 0;
 
-      const long long p = t0 + 16 * lane;
+      // The tile's last row batch is in: write its (up to) four output rows.
+      const int p = t0 + 16 * lane;  // this lane's first position
       uint4 o[4];
       transpose(acc, o);
 #pragma unroll
@@ -343,30 +225,34 @@ rs_gf_ring_kernel(const uint8_t* __restrict__ x, long long x_bstride,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (r >= rows) break;
-        uint8_t* orow = ob + static_cast<long long>(4 * g + r) * S;
-        const int c = static_cast<int>(reinterpret_cast<uintptr_t>(orow) & 15);
+        uint8_t* orow = ob + (4 * g + r) * S;
+        const int c = align_of(orow);
+        // Words [first, 4) of lane t-1's row bytes hold its last c bytes.
         const int first = (16 - c) >> 2;
         uint4 prev = o[r];
         if (first <= 0) prev.x = __shfl_up_sync(kFull, o[r].x, 1);
         if (first <= 1) prev.y = __shfl_up_sync(kFull, o[r].y, 1);
         if (first <= 2) prev.z = __shfl_up_sync(kFull, o[r].z, 1);
         if (first <= 3) prev.w = __shfl_up_sync(kFull, o[r].w, 1);
-        if (lane == 0) prev = carry_in[r];
+        if (lane == 0) prev = carry_in[r];  // stale on a span's first tile, where it is not stored
         if (lane == 31) carry_out[r] = o[r];
-        const long long ga = p - c;
+        // Granule A at position p - c: lane t-1's last c bytes, then this
+        // lane's first 16 - c.
+        const int ga = p - c;
         if (ga < end) {
           const uint4 va = c ? realign(prev, o[r], 16 - c) : o[r];
           if (ga >= begin && ga + 16 <= end) {
             *reinterpret_cast<uint4*>(orow + ga) = va;
-          } else {
-            const int lo = static_cast<int>(max(ga, begin) - ga);
-            const int hi = static_cast<int>(min(ga + 16, end) - ga);
+          } else {  // a span edge: only this span's positions
+            const int lo = max(ga, begin) - ga;
+            const int hi = min(ga + 16, end) - ga;
             if (lo < hi) store_bytes(orow + ga, va, lo, hi);
           }
         }
+        // Granule B at p - c + 16: this lane's last c bytes, written by the
+        // lane that holds the span's last position.
         if (c && p < end && end <= p + 16 && ga + 16 < end) {
-          store_bytes(orow + ga + 16, realign(o[r], make_uint4(0, 0, 0, 0), 16 - c), 0,
-                      static_cast<int>(end - ga - 16));
+          store_bytes(orow + ga + 16, realign(o[r], make_uint4(0, 0, 0, 0), 16 - c), 0, end - ga - 16);
         }
       }
       parity ^= 1;
@@ -375,56 +261,26 @@ rs_gf_ring_kernel(const uint8_t* __restrict__ x, long long x_bstride,
         t0 = begin;
         ++g;
       }
+      __syncwarp();  // carry_out written before the next tile reads it
     }
     cp_async_wait<0>();
     __syncwarp();
   }
 }
 
-template <bool kNibble, int kStages, int kRingWarps, bool kLookup = true>
-int launch_ring(const uint8_t* x, long long x_bstride, const uint32_t* table, uint8_t* out,
-                long long out_bstride, int B, int K, int R, long long S, cudaStream_t stream) {
-  if (B == 0 || S == 0 || R == 0) return 0;
-  constexpr int kEntries = kNibble ? 32 : 256;
-  constexpr int kRingThreads = 32 * kRingWarps;
-  constexpr int kWarpRing = kStages * kStageBytes;
-  auto kernel = rs_gf_ring_kernel<kNibble, kStages, kRingWarps, kLookup>;
-  const size_t smem = kRingWarps * 8 * sizeof(uint4) + kRingWarps * kWarpRing +
-                      static_cast<size_t>((R + 3) / 4) * K * kEntries * sizeof(uint32_t);
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRingThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long resident_warps = static_cast<long long>(per_sm) * sms * kRingWarps;
-  const long long tiles = (S + kTile - 1) / kTile;
-  const long long span_tiles = (tiles * B + resident_warps - 1) / resident_warps;
-  const long long spans_per_row = (tiles + span_tiles - 1) / span_tiles;
-  const long long items = spans_per_row * B;
-  const long long max_blocks = static_cast<long long>(per_sm) * sms;
-  const long long blocks = std::min((items + kRingWarps - 1) / kRingWarps, max_blocks);
-  kernel<<<static_cast<unsigned>(blocks), kRingThreads, smem, stream>>>(
-      x, x_bstride, table, out, out_bstride, K, R, S, span_tiles, spans_per_row, items);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kNibble>
+template <int kStages, int kRows, int kWarps, int kMinBlocks, bool kLookup = true>
 int launch(const uint8_t* x, long long x_bstride, const uint32_t* table, uint8_t* out,
-           long long out_bstride, int B, int K, int R, long long S, cudaStream_t stream) {
+           long long out_bstride, int B, int K, int R, int S, cudaStream_t stream) {
   if (B == 0 || S == 0 || R == 0) return 0;
-  constexpr int kEntries = kNibble ? 32 : 256;
-  const size_t smem = kWarps * 8 * sizeof(uint4) +
-                      static_cast<size_t>((R + 3) / 4) * K * kEntries * sizeof(uint32_t);
+  auto kernel = rs_gf_apply_kernel<kStages, kRows, kWarps, kMinBlocks, kLookup>;
+  const size_t smem = static_cast<size_t>((R + 3) / 4) * K * kEntries * sizeof(uint32_t) +
+                      kWarps * (kStages * kRows * kRowSpan + 8 * sizeof(uint4));
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rs_gf_apply_kernel<kNibble>, kThreads, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kWarps, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long resident_warps = static_cast<long long>(per_sm) * sms * kWarps;
@@ -434,45 +290,38 @@ int launch(const uint8_t* x, long long x_bstride, const uint32_t* table, uint8_t
   const long long span_tiles = (tiles * B + resident_warps - 1) / resident_warps;
   const long long spans_per_row = (tiles + span_tiles - 1) / span_tiles;
   const long long items = spans_per_row * B;
-  const long long max_blocks = static_cast<long long>(per_sm) * sms;
-  const long long blocks = std::min((items + kWarps - 1) / kWarps, max_blocks);
-  rs_gf_apply_kernel<kNibble><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      x, x_bstride, table, out, out_bstride, K, R, S, span_tiles, spans_per_row, items);
+  const long long blocks = std::min((items + kWarps - 1) / kWarps, static_cast<long long>(per_sm) * sms);
+  kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, smem, stream>>>(
+      x, x_bstride, table, out, out_bstride, K, R, S, static_cast<int>(span_tiles),
+      static_cast<int>(spans_per_row), items);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x: [B, K, S] u8 with rows contiguous (any alignment), batch stride x_bstride
-// (bytes). table: [ceil(R/4), K, 32] u32 split-nibble product tables. out:
-// [B, R, S] u8 with rows contiguous, batch stride out_bstride. Returns the
-// cudaError_t of the launch.
+// (bytes). table: [ceil(R/4), K, 256] u32 product tables. out: [B, R, S] u8
+// with rows contiguous, batch stride out_bstride. K*S and R*S < 2^31.
+// Returns the cudaError_t of the launch.
 extern "C" int rs_gf_apply_launch(const uint8_t* x, long long x_bstride, const uint32_t* table,
                                   uint8_t* out, long long out_bstride, int B, int K, int R,
                                   long long S, cudaStream_t stream) {
-  return launch<true>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+  return launch<2, 4, 4, 1>(x, x_bstride, table, out, out_bstride, B, K, R, static_cast<int>(S), stream);
 }
 
-// The same map with [ceil(R/4), K, 256] whole-byte product tables.
-extern "C" int rs_gf_apply_byte_table_launch(const uint8_t* x, long long x_bstride,
-                                             const uint32_t* table, uint8_t* out,
-                                             long long out_bstride, int B, int K, int R,
-                                             long long S, cudaStream_t stream) {
-  return launch<false>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
-}
-
-// The staged variants, by number (tools/rs_probe.py times them).
+// Ring shapes of the same kernel, by number (tools/rs_probe.py times them).
 extern "C" int rs_gf_variant_launch(int variant, const uint8_t* x, long long x_bstride,
                                     const uint32_t* table, uint8_t* out, long long out_bstride,
                                     int B, int K, int R, long long S, cudaStream_t stream) {
+  const int s = static_cast<int>(S);
   switch (variant) {
-    case 0: return launch_ring<false, 4, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
-    case 1: return launch_ring<false, 3, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
-    case 2: return launch_ring<false, 2, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
-    case 3: return launch_ring<true, 3, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
-    case 4: return launch_ring<false, 3, 8>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
-    case 5: return launch_ring<false, 3, 4, false>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
-    case 6: return launch_ring<true, 4, 4>(x, x_bstride, table, out, out_bstride, B, K, R, S, stream);
+    case 0: return launch<2, 4, 4, 1>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
+    case 1: return launch<4, 2, 4, 1>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
+    case 2: return launch<2, 4, 8, 4>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
+    case 3: return launch<4, 2, 8, 4>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
+    case 4: return launch<3, 2, 4, 8>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
+    case 5: return launch<2, 4, 4, 1, false>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
+    case 6: return launch<4, 2, 8, 1>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -38,13 +38,11 @@ KERNEL = Kernel(
     ],
     error_symbol="rs_gf_error_string",
 )
-# The same map reading whole-byte tables (product_table); timed beside
-# KERNEL by tools/rs_probe.py.
-BYTE_TABLE_KERNEL = Kernel("rs_gf_apply_byte_table_launch", KERNEL.argtypes, error_symbol="rs_gf_error_string")
 
-# The kernel stages the product tables (and 1 KiB of its own) in shared
-# memory without opting in to more than the default 48 KiB a block may use.
-_MAX_TABLE_BYTES = 47 * 1024
+# The kernel stages the product tables in shared memory beside its own
+# ~17 KiB ring, within the 227 KiB a block may use.
+_MAX_TABLE_BYTES = 192 * 1024
+_MAX_ROWS_BYTES = 2**31 - 1  # K*S and R*S: the kernel's offsets within a batch item are 32-bit
 _MAX_BATCH = 65535  # grid.y
 
 _TABLES: dict[tuple, torch.Tensor] = {}
@@ -65,22 +63,12 @@ def product_table(coeffs: np.ndarray) -> np.ndarray:
     return table
 
 
-def nibble_table(coeffs: np.ndarray) -> np.ndarray:
-    """[R, K] GF(2^8) coefficients -> [ceil(R/4), K, 32] u32 split-nibble
-    tables: byte j of [g, k, n] is gfmul(coeffs[4g + j, k], n) and of
-    [g, k, 16 + n] is gfmul(coeffs[4g + j, k], n << 4), for n < 16. GF(2^8)
-    multiplication is linear over GF(2), so gfmul(c, v) is the XOR of the
-    two entries of v's low and high nibble."""
-    table = product_table(coeffs)
-    return np.concatenate([table[:, :, :16], table[:, :, 0:256:16]], axis=2)
-
-
-def _device_table(coeffs: np.ndarray, device: torch.device, build=nibble_table) -> torch.Tensor:
-    key = (coeffs.shape, coeffs.tobytes(), str(device), build.__name__)
+def _device_table(coeffs: np.ndarray, device: torch.device) -> torch.Tensor:
+    key = (coeffs.shape, coeffs.tobytes(), str(device))
     with _TABLES_LOCK:
         t = _TABLES.get(key)
     if t is None:
-        host = build(coeffs).view(np.int32)  # torch has no uint32 copy kernel on every build
+        host = product_table(coeffs).view(np.int32)  # torch has no uint32 copy kernel on every build
         t = torch.from_numpy(host).to(device)
         with _TABLES_LOCK:
             if len(_TABLES) >= _MAX_CACHED_TABLES:
@@ -119,8 +107,10 @@ def apply(x: torch.Tensor, coeffs, out: torch.Tensor | None = None) -> torch.Ten
         raise ValueError("x rows must be contiguous")
     if b > _MAX_BATCH:
         raise ValueError(f"batch {b} exceeds {_MAX_BATCH}")
-    if -(-r // 4) * k * 32 * 4 > _MAX_TABLE_BYTES:
+    if -(-r // 4) * k * 256 * 4 > _MAX_TABLE_BYTES:
         raise ValueError(f"[{r}, {k}] coefficients exceed the kernel's table budget")
+    if max(k, r) * s > _MAX_ROWS_BYTES:
+        raise ValueError(f"{max(k, r)} rows of {s} bytes exceed the kernel's 32-bit offsets")
     if out is None:
         out = torch.empty((b, r, s), dtype=torch.uint8, device=x.device)
     elif (

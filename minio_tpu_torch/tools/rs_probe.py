@@ -124,33 +124,29 @@ def check(dev: torch.device, apply=rs_cuda.apply) -> None:
                 raise AssertionError(f"rs_gf_apply disagrees with its plain version: S {s}, offset {off}, R {r}")
 
 
-def _variant(kernel, build, number=None):
+def _variant(kernel, number):
     def apply(x, coeffs, out):
-        table = rs_cuda._device_table(coeffs, x.device, build)
+        table = rs_cuda._device_table(coeffs, x.device)
         args = (
             x.data_ptr(), x.stride(0), table.data_ptr(), out.data_ptr(), out.stride(0),
             x.shape[0], x.shape[1], coeffs.shape[0], x.shape[2], torch.cuda.current_stream().cuda_stream,
         )
-        kernel.launch(*(args if number is None else (number, *args)))
+        kernel.launch(number, *args)
         return out
     return apply
 
 
-_RING = cuda_build.Kernel("rs_gf_variant_launch", [ctypes.c_int] + rs_cuda.KERNEL.argtypes,
-                          error_symbol="rs_gf_error_string")
+_VARIANT = cuda_build.Kernel("rs_gf_variant_launch", [ctypes.c_int] + rs_cuda.KERNEL.argtypes,
+                             error_symbol="rs_gf_error_string")
+# (stages, rows a stage, warps a block, min blocks an SM) of each ring shape.
+SHAPES = {0: (2, 4, 4, 1), 1: (4, 2, 4, 1), 2: (2, 4, 8, 4), 3: (4, 2, 8, 4), 4: (3, 2, 4, 8), 6: (4, 2, 8, 1)}
 VARIANTS = {
-    "reg_nibble": ("rs_gf_apply_kernelILb1E", _variant(rs_cuda.KERNEL, rs_cuda.nibble_table)),
-    "reg_byte": ("rs_gf_apply_kernelILb0E", _variant(rs_cuda.BYTE_TABLE_KERNEL, rs_cuda.product_table)),
-    "ring_byte_s4w4": ("rs_gf_ring_kernelILb0ELi4ELi4ELb1E", _variant(_RING, rs_cuda.product_table, 0)),
-    "ring_byte_s3w4": ("rs_gf_ring_kernelILb0ELi3ELi4ELb1E", _variant(_RING, rs_cuda.product_table, 1)),
-    "ring_byte_s2w4": ("rs_gf_ring_kernelILb0ELi2ELi4ELb1E", _variant(_RING, rs_cuda.product_table, 2)),
-    "ring_nibble_s3w4": ("rs_gf_ring_kernelILb1ELi3ELi4ELb1E", _variant(_RING, rs_cuda.nibble_table, 3)),
-    "ring_byte_s3w8": ("rs_gf_ring_kernelILb0ELi3ELi8ELb1E", _variant(_RING, rs_cuda.product_table, 4)),
-    "ring_nibble_s4w4": ("rs_gf_ring_kernelILb1ELi4ELi4ELb1E", _variant(_RING, rs_cuda.nibble_table, 6)),
+    f"s{st}r{rw}w{wp}m{mb}": (f"rs_gf_apply_kernelILi{st}ELi{rw}ELi{wp}ELi{mb}ELb1E", _variant(_VARIANT, n))
+    for n, (st, rw, wp, mb) in SHAPES.items()
 }
 # The data path alone (loads, realignment, stores; no table lookups, so its
 # bytes are not the map's): the floor the lookups add to.
-FLOOR = ("rs_gf_ring_kernelILb0ELi3ELi4ELb0E", _variant(_RING, rs_cuda.product_table, 5))
+FLOOR = ("rs_gf_apply_kernelILi2ELi4ELi4ELi1ELb0E", _variant(_VARIANT, 5))
 
 
 def graph_ms(calls: list, reps: int) -> float:

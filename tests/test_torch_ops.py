@@ -123,17 +123,6 @@ def test_rs_product_table_bytes():
             np.testing.assert_array_equal((table[0, k] >> (8 * r)) & 0xFF, mul[coeffs[r, k]])
 
 
-def test_rs_nibble_tables_match_mul_table_exhaustively():
-    # Every (c, v): a [256, 1] coefficient column puts c = 0..255 in the
-    # four row bytes of 64 table groups.
-    coeffs = np.arange(256, dtype=np.uint8)[:, None]
-    table = rs_cuda.nibble_table(coeffs)  # [64, 1, 32]
-    v = np.arange(256)
-    words = table[:, 0, v & 15] ^ table[:, 0, 16 + (v >> 4)]  # [64, 256]
-    got = np.stack([(words >> np.uint32(8 * j)) & 0xFF for j in range(4)], axis=1).reshape(256, 256)
-    np.testing.assert_array_equal(got, rs_matrix.gf.mul_table())
-
-
 _TILE = 512  # kTile in csrc/rs_gf.cu: 16 positions for each of 32 lanes
 
 
@@ -147,13 +136,15 @@ def _realign(lo, hi, a: int):
 def _rs_kernel_model(xbuf, x_base, obuf, o_base, coeffs, s, span_tiles, exchange=True):
     """One batch item of csrc/rs_gf.cu, lane by lane: input row k starts at
     byte x_base + k*s of xbuf, output row r at o_base + r*s of obuf; both
-    buffers start on a 16-byte boundary. Loads and full stores touch whole
-    aligned granules; bytes past a lane's granule come from lane t+1 (lane 31
-    loads its own), output granules take lane t-1's last bytes, and the first
-    lane of a tile takes them from the previous tile's last lane. `exchange`
-    False drops the neighbour exchange: the kernel without its shuffles."""
+    buffers start on a 16-byte boundary. A tile of an input row is staged as
+    the 33 aligned granules that cover it (those holding a row byte), and
+    lane t funnel-shifts its 16 bytes out of staged granules t and t+1;
+    output granules take lane t-1's last bytes, and the first lane of a tile
+    takes them from the previous tile's last lane. Full stores write whole
+    aligned granules. `exchange` False drops the neighbour's part on both
+    sides: lane t reads granule t alone and writes its own bytes alone."""
     r_rows, k_rows = coeffs.shape
-    table = rs_cuda.nibble_table(coeffs).astype(np.uint64)
+    table = rs_cuda.product_table(coeffs).astype(np.uint64)
     lane = np.arange(32)
     tiles = -(-s // _TILE)
     for begin in range(0, tiles * _TILE, span_tiles * _TILE):
@@ -165,21 +156,17 @@ def _rs_kernel_model(xbuf, x_base, obuf, o_base, coeffs, s, span_tiles, exchange
                 acc = np.zeros((32, 16), np.uint64)
                 for k in range(k_rows):
                     a = (x_base + k * s) & 15
-                    gs = x_base + k * s + p - a
-                    q = np.zeros((32, 16), np.uint8)
-                    for t in np.nonzero(p - a < end)[0]:
-                        q[t] = xbuf[gs[t] : gs[t] + 16]
-                    q = q.view("<u4").astype(np.uint64)
-                    n = np.zeros_like(q)
-                    if exchange:
-                        n[:31] = q[1:]
-                    if a and p[31] + 16 - a < end:
-                        n[31] = xbuf[gs[31] + 16 : gs[31] + 32].view("<u4")
-                    w = _realign(q, n, a)
+                    g0 = x_base + k * s + t0 - a  # the aligned granule holding position t0
+                    stage = np.zeros((33, 16), np.uint8)
+                    for i in range(33):
+                        if t0 - a + 16 * i < end:
+                            stage[i] = xbuf[g0 + 16 * i : g0 + 16 * i + 16]
+                    words = stage.view("<u4").astype(np.uint64)
+                    hi = words[1:] if exchange else np.zeros_like(words[1:])
+                    w = _realign(words[:32], hi, a)
                     for j in range(16):
                         v = (w[:, j >> 2] >> _U64(8 * (j & 3))) & _U64(0xFF)
-                        acc[:, j] ^= table[g, k, (v & _U64(15)).astype(int)]
-                        acc[:, j] ^= table[g, k, 16 + (v >> _U64(4)).astype(int)]
+                        acc[:, j] ^= table[g, k, v.astype(int)]
                 o = np.zeros((4, 32, 4), np.uint64)
                 for qd in range(4):
                     a0, a1, a2, a3 = (acc[:, 4 * qd + i] for i in range(4))
