@@ -23,7 +23,10 @@
 //   lane. It copies the 33 aligned 16-byte granules that cover a tile of an
 //   input row into a per-warp cp.async ring in shared memory (only granules
 //   that hold a byte of the row: CUDA allocations are >= 256-byte aligned,
-//   so those never leave the allocation), a few rows ahead of the lookups.
+//   so those never leave the allocation). The ring has two stages of four
+//   rows: one in flight while the warp reads the other. That leaves room for
+//   28 warps an SM, which measured faster than deeper rings with fewer warps
+//   (PERF.md, PR 5).
 //   A lane reads granules t and t+1 of a row and funnel-shifts its 16 bytes
 //   out of them. Output runs the other way: lane t assembles the aligned
 //   output granule holding its first byte from lane t-1's last bytes
@@ -41,6 +44,9 @@
 //   spans of whole tiles, sized so the spans of all batch items fill the
 //   resident warps.
 //
+// What remains between the kernel and its bound is the data path, not the
+// lookups: the same kernel without them takes ~94% of its time (PERF.md).
+//
 // Positions within a row and row offsets within a batch item are 32-bit:
 // the wrapper keeps K*S and R*S below 2^31.
 
@@ -54,17 +60,23 @@ constexpr int kTile = 512;                   // row positions a warp handles per
 constexpr int kGranules = kTile / 16 + 1;    // 33 aligned granules cover a tile of a row
 constexpr int kRowSpan = 16 * kGranules;     // 528 ring bytes per row per stage
 constexpr int kEntries = 256;                // table words per (row group, input row)
+constexpr int kRows = 4;                     // input rows a ring stage holds
+constexpr int kStages = 2;                   // ring stages a warp: one in flight while one is read
+constexpr int kWarps = 4;                    // warps a block, each with its own ring
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStageBytes = kRows * kRowSpan;
+constexpr int kWarpRing = kStages * kStageBytes;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// Bytes a..a+15 (0 <= a <= 16) of the 32 bytes lo ++ hi.
+// Bytes a..a+15 (0 <= a < 16) of the 32 bytes lo ++ hi. `a` is the same in
+// every lane, so the switch does not diverge.
 __device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, int a) {
   uint32_t c0, c1, c2, c3, c4;
   switch (a >> 2) {
     case 0: c0 = lo.x; c1 = lo.y; c2 = lo.z; c3 = lo.w; c4 = hi.x; break;
     case 1: c0 = lo.y; c1 = lo.z; c2 = lo.w; c3 = hi.x; c4 = hi.y; break;
     case 2: c0 = lo.z; c1 = lo.w; c2 = hi.x; c3 = hi.y; c4 = hi.z; break;
-    case 3: c0 = lo.w; c1 = hi.x; c2 = hi.y; c3 = hi.z; c4 = hi.w; break;
-    default: c0 = hi.x; c1 = hi.y; c2 = hi.z; c3 = hi.w; c4 = 0; break;
+    default: c0 = lo.w; c1 = hi.x; c2 = hi.y; c3 = hi.z; c4 = hi.w; break;
   }
   const int sh = 8 * (a & 3);
   return make_uint4(__funnelshift_r(c0, c1, sh), __funnelshift_r(c1, c2, sh),
@@ -119,17 +131,12 @@ __device__ __forceinline__ int align_of(const uint8_t* p) {
   return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
 }
 
-// kStages ring stages of kRows input rows per warp; kWarps warps a block.
-template <int kStages, int kRows, int kWarps, int kMinBlocks, bool kLookup>
-__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+__global__ void __launch_bounds__(kThreads)
 rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
                    const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
                    long long out_bstride, int K, int R, int S, int span_tiles, int spans_per_row,
                    long long items) {
-  constexpr int kThreads = 32 * kWarps;
-  constexpr int kStageBytes = kRows * kRowSpan;
-  constexpr int kWarpRing = kStages * kStageBytes;
-  extern __shared__ __align__(1024) uint4 smem[];
+  extern __shared__ uint4 smem[];
   const int G = (R + 3) / 4;
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem);                       // [G][K][256]
   uint8_t* ring = reinterpret_cast<uint8_t*>(tab + G * K * kEntries);      // [kWarps][kWarpRing]
@@ -206,7 +213,7 @@ rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
 #pragma unroll
           for (int q = 0; q < 16; ++q) {
             const uint32_t v = (ws[q >> 2] >> (8 * (q & 3))) & 0xFF;
-            acc[q] ^= kLookup ? t[v] : v;
+            acc[q] ^= t[v];
           }
         }
       }
@@ -268,19 +275,24 @@ rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
   }
 }
 
-template <int kStages, int kRows, int kWarps, int kMinBlocks, bool kLookup = true>
-int launch(const uint8_t* x, long long x_bstride, const uint32_t* table, uint8_t* out,
-           long long out_bstride, int B, int K, int R, int S, cudaStream_t stream) {
+}  // namespace
+
+// x: [B, K, S] u8 with rows contiguous (any alignment), batch stride x_bstride
+// (bytes). table: [ceil(R/4), K, 256] u32 product tables. out: [B, R, S] u8
+// with rows contiguous, batch stride out_bstride. K*S and R*S < 2^31.
+// Returns the cudaError_t of the launch.
+extern "C" int rs_gf_apply_launch(const uint8_t* x, long long x_bstride, const uint32_t* table,
+                                  uint8_t* out, long long out_bstride, int B, int K, int R,
+                                  long long S, cudaStream_t stream) {
   if (B == 0 || S == 0 || R == 0) return 0;
-  auto kernel = rs_gf_apply_kernel<kStages, kRows, kWarps, kMinBlocks, kLookup>;
   const size_t smem = static_cast<size_t>((R + 3) / 4) * K * kEntries * sizeof(uint32_t) +
-                      kWarps * (kStages * kRows * kRowSpan + 8 * sizeof(uint4));
+                      kWarps * (kWarpRing + 8 * sizeof(uint4));
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kWarps, smem);
+    err = cudaFuncSetAttribute(rs_gf_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rs_gf_apply_kernel, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long resident_warps = static_cast<long long>(per_sm) * sms * kWarps;
@@ -291,39 +303,10 @@ int launch(const uint8_t* x, long long x_bstride, const uint32_t* table, uint8_t
   const long long spans_per_row = (tiles + span_tiles - 1) / span_tiles;
   const long long items = spans_per_row * B;
   const long long blocks = std::min((items + kWarps - 1) / kWarps, static_cast<long long>(per_sm) * sms);
-  kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, smem, stream>>>(
-      x, x_bstride, table, out, out_bstride, K, R, S, static_cast<int>(span_tiles),
+  rs_gf_apply_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      x, x_bstride, table, out, out_bstride, K, R, static_cast<int>(S), static_cast<int>(span_tiles),
       static_cast<int>(spans_per_row), items);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// x: [B, K, S] u8 with rows contiguous (any alignment), batch stride x_bstride
-// (bytes). table: [ceil(R/4), K, 256] u32 product tables. out: [B, R, S] u8
-// with rows contiguous, batch stride out_bstride. K*S and R*S < 2^31.
-// Returns the cudaError_t of the launch.
-extern "C" int rs_gf_apply_launch(const uint8_t* x, long long x_bstride, const uint32_t* table,
-                                  uint8_t* out, long long out_bstride, int B, int K, int R,
-                                  long long S, cudaStream_t stream) {
-  return launch<2, 4, 4, 1>(x, x_bstride, table, out, out_bstride, B, K, R, static_cast<int>(S), stream);
-}
-
-// Ring shapes of the same kernel, by number (tools/rs_probe.py times them).
-extern "C" int rs_gf_variant_launch(int variant, const uint8_t* x, long long x_bstride,
-                                    const uint32_t* table, uint8_t* out, long long out_bstride,
-                                    int B, int K, int R, long long S, cudaStream_t stream) {
-  const int s = static_cast<int>(S);
-  switch (variant) {
-    case 0: return launch<2, 4, 4, 1>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
-    case 1: return launch<4, 2, 4, 1>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
-    case 2: return launch<2, 4, 8, 4>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
-    case 3: return launch<4, 2, 8, 4>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
-    case 4: return launch<3, 2, 4, 8>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
-    case 5: return launch<2, 4, 4, 1, false>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
-    case 6: return launch<4, 2, 8, 1>(x, x_bstride, table, out, out_bstride, B, K, R, s, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 extern "C" const char* rs_gf_error_string(int err) {

@@ -12,10 +12,13 @@
    (table lookups), PRMT (the byte transposes and funnel-shift partners),
    SHFL (the neighbour exchange) and LDL/STL (local memory). With
    ``--sass FILE`` it also writes the kernel's SASS to FILE.
-3. Checks the kernel against its plain version on the fused encode layout,
-   then times it (CUDA events) on that layout, [B, 12+4, 87382] data rows ->
-   parity rows, for B in 1..64 (the batcher's buckets), rotating over copies
-   that together exceed the 50 MB L2 so each launch reads cold rows.
+3. Checks the kernel against its plain version (the fused encode layout,
+   and R = 1..4 rows on rows 1..15 bytes past a 16-byte boundary), then
+   times it on that layout, [B, 12+4, 87382] data rows -> parity rows, for B
+   in 1..64 (the batcher's buckets): device time from a CUDA graph of
+   launches (CUDA events around its replay), rotating over copies that
+   together exceed the 50 MB L2 so each launch reads cold rows. Beside it, a
+   torch device copy of as many bytes as the B = 64 encode moves.
 
 The last line of standard output is one JSON object with those numbers.
 Exits non-zero without a CUDA device.
@@ -24,7 +27,6 @@ Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import collections
-import ctypes
 import json
 import re
 import subprocess
@@ -96,7 +98,7 @@ def sass_widths(lines: list[str]) -> dict:
     return {"total": sum(full.values()), **widths, "by_opcode": dict(sorted(full.items()))}
 
 
-def check(dev: torch.device, apply=rs_cuda.apply) -> None:
+def check(dev: torch.device) -> None:
     """The kernel against its plain version: the fused encode layout at
     B = 1 and 16, and R = 1..4 rows on input and output rows 1..15 bytes
     past a 16-byte boundary."""
@@ -108,7 +110,7 @@ def check(dev: torch.device, apply=rs_cuda.apply) -> None:
 
     for b in (1, 16):
         shards = rand((b, K + M, SHARD_CHUNK))
-        apply(shards[:, :K], parity, out=shards[:, K:])
+        rs_cuda.apply(shards[:, :K], parity, out=shards[:, K:])
         if not torch.equal(shards[:, K:], rs_cuda.plain(shards[:, :K], parity)):
             raise AssertionError(f"rs_gf_apply disagrees with its plain version at B = {b}")
     present = tuple(i not in (0, 5, 12, 15) for i in range(K + M))
@@ -119,34 +121,9 @@ def check(dev: torch.device, apply=rs_cuda.apply) -> None:
             coeffs = rs_matrix.reconstruct_rows(K, M, present, (0, 5, 12, 15)[:r])
             xv = xbuf[off : off + 2 * K * s].view(2, K, s)
             ov = obuf[(7 * off + 3) % 16 :][: 2 * r * s].view(2, r, s)
-            apply(xv, coeffs, out=ov)
+            rs_cuda.apply(xv, coeffs, out=ov)
             if not torch.equal(ov, rs_cuda.plain(xv, coeffs)):
                 raise AssertionError(f"rs_gf_apply disagrees with its plain version: S {s}, offset {off}, R {r}")
-
-
-def _variant(kernel, number):
-    def apply(x, coeffs, out):
-        table = rs_cuda._device_table(coeffs, x.device)
-        args = (
-            x.data_ptr(), x.stride(0), table.data_ptr(), out.data_ptr(), out.stride(0),
-            x.shape[0], x.shape[1], coeffs.shape[0], x.shape[2], torch.cuda.current_stream().cuda_stream,
-        )
-        kernel.launch(number, *args)
-        return out
-    return apply
-
-
-_VARIANT = cuda_build.Kernel("rs_gf_variant_launch", [ctypes.c_int] + rs_cuda.KERNEL.argtypes,
-                             error_symbol="rs_gf_error_string")
-# (stages, rows a stage, warps a block, min blocks an SM) of each ring shape.
-SHAPES = {0: (2, 4, 4, 1), 1: (4, 2, 4, 1), 2: (2, 4, 8, 4), 3: (4, 2, 8, 4), 4: (3, 2, 4, 8), 6: (4, 2, 8, 1)}
-VARIANTS = {
-    f"s{st}r{rw}w{wp}m{mb}": (f"rs_gf_apply_kernelILi{st}ELi{rw}ELi{wp}ELi{mb}ELb1E", _variant(_VARIANT, n))
-    for n, (st, rw, wp, mb) in SHAPES.items()
-}
-# The data path alone (loads, realignment, stores; no table lookups, so its
-# bytes are not the map's): the floor the lookups add to.
-FLOOR = ("rs_gf_apply_kernelILi2ELi4ELi4ELi1ELb0E", _variant(_VARIANT, 5))
 
 
 def graph_ms(calls: list, reps: int) -> float:
@@ -170,7 +147,7 @@ def graph_ms(calls: list, reps: int) -> float:
     return start.elapsed_time(end) / (reps * len(calls))
 
 
-def sweep_ms(dev: torch.device, reps: int = 10, apply=rs_cuda.apply) -> dict:
+def sweep_ms(dev: torch.device, reps: int = 10) -> dict:
     """Device ms of one fused-layout encode launch at [B, 12, 87382] for each
     B, rotating over copies that together exceed the L2."""
     gen = torch.Generator().manual_seed(5)
@@ -180,10 +157,20 @@ def sweep_ms(dev: torch.device, reps: int = 10, apply=rs_cuda.apply) -> dict:
         copies = max(2, -(-(64 << 20) // (b * (K + M) * SHARD_CHUNK)))
         bufs = [torch.randint(0, 256, (b, K + M, SHARD_CHUNK), dtype=torch.uint8, generator=gen).to(dev)
                 for _ in range(copies)]
-        calls = [lambda t=t: apply(t[:, :K], parity, out=t[:, K:]) for t in bufs]
+        calls = [lambda t=t: rs_cuda.apply(t[:, :K], parity, out=t[:, K:]) for t in bufs]
         out[b] = {"ms": graph_ms(calls, reps), "bound_ms": b * (K + M) * SHARD_CHUNK / HBM_BYTES_PER_S * 1e3}
         del bufs, calls
     return out
+
+
+def copy_ms(dev: torch.device) -> dict:
+    """Device ms of one torch copy that reads and writes as many bytes as the
+    B = 64 encode moves in all (a yardstick of the card's rate for mixed
+    reads and writes; not used by the port)."""
+    n = 64 * (K + M) * SHARD_CHUNK // 2
+    bufs = [torch.empty(2 * n, dtype=torch.uint8, device=dev) for _ in range(2)]
+    calls = [lambda t=t: t[n:].copy_(t[:n]) for t in bufs]
+    return {"bytes": 2 * n, "ms": graph_ms(calls, 10)}
 
 
 def main() -> int:
@@ -200,26 +187,19 @@ def main() -> int:
     for name, rep in ptxas.items():
         print(f"ptxas {name}: {json.dumps(rep)}", flush=True)
     library = cuda_build.build_all()
-    sass, sweep = {}, {}
-    for variant, (tag, apply) in VARIANTS.items():
-        lines = kernel_sass(library, tag)
-        sass[variant] = sass_widths(lines)
-        if len(sys.argv) > 2 and sys.argv[1] == "--sass":
-            Path(sys.argv[2] + "." + variant).write_text("\n".join(lines) + "\n")
-        print(f"{variant} SASS: {json.dumps({k: v for k, v in sass[variant].items() if k != 'by_opcode'})}", flush=True)
-        check(dev, apply)
-    sass["floor"] = sass_widths(kernel_sass(library, FLOOR[0]))
-    order = list(VARIANTS) + ["floor"]
-    VARIANTS["floor"] = FLOOR
-    for turn, names in enumerate((order, order[::-1])):
-        for variant in names:
-            sw = sweep_ms(dev, apply=VARIANTS[variant][1])
-            sweep[f"{variant}_{turn}"] = sw
-            print(f"{variant} encode ms by B at [B, 12, 87382], fused layout: "
-                  + ", ".join(f"{b}: {r['ms']:.4f} (bound {r['bound_ms']:.4f})" for b, r in sw.items()) + f" [{smi}]",
-                  flush=True)
+    lines = kernel_sass(library, KERNEL_NAME)
+    sass = sass_widths(lines)
+    if len(sys.argv) > 2 and sys.argv[1] == "--sass":
+        Path(sys.argv[2]).write_text("\n".join(lines) + "\n")
+    print(f"{KERNEL_NAME} SASS: {json.dumps({k: v for k, v in sass.items() if k != 'by_opcode'})}", flush=True)
+    check(dev)
+    sweep = sweep_ms(dev)
+    print("rs_gf_apply encode ms by B at [B, 12, 87382], fused layout: "
+          + ", ".join(f"{b}: {r['ms']:.4f} (bound {r['bound_ms']:.4f})" for b, r in sweep.items()) + f" [{smi}]")
+    copy = copy_ms(dev)
+    print(f"device copy of the B = 64 encode's bytes ({copy['bytes']} read + written): {copy['ms']:.4f} ms [{smi}]")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi, "ptxas": ptxas,
-                      "sass": sass, "encode_ms_by_b": sweep}))
+                      "sass": sass, "encode_ms_by_b": sweep, "copy": copy}))
     return 0
 
 

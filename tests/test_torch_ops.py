@@ -127,9 +127,9 @@ _TILE = 512  # kTile in csrc/rs_gf.cu: 16 positions for each of 32 lanes
 
 
 def _realign(lo, hi, a: int):
-    """Bytes a..a+15 (0 <= a <= 16) of lo ++ hi, [32, 4] u32 words each, as
+    """Bytes a..a+15 (0 <= a < 16) of lo ++ hi, [32, 4] u32 words each, as
     the kernel's realign(): word select, then __funnelshift_r."""
-    c = np.concatenate([lo, hi, np.zeros_like(lo[:, :1])], axis=1)[:, a >> 2 :][:, :5]
+    c = np.concatenate([lo, hi], axis=1)[:, a >> 2 :][:, :5]
     return np.stack([_funnel_r(c[:, i], c[:, i + 1], 8 * (a & 3)) for i in range(4)], axis=1)
 
 
@@ -182,7 +182,7 @@ def _rs_kernel_model(xbuf, x_base, obuf, o_base, coeffs, s, span_tiles, exchange
                         prev[1:] = o[r][:-1]
                     prev[0] = carry[r]
                     carry[r] = o[r][31].copy()
-                    va = _realign(prev, o[r], 16 - c).astype("<u4").view(np.uint8).reshape(32, 16)
+                    va = (_realign(prev, o[r], 16 - c) if c else o[r]).astype("<u4").view(np.uint8).reshape(32, 16)
                     own = o[r].astype("<u4").view(np.uint8).reshape(32, 16)
                     for t in range(32):
                         ga = int(p[t]) - c
