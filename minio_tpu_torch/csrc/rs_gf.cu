@@ -26,7 +26,7 @@
 //   so those never leave the allocation). The ring has two stages of four
 //   rows: one in flight while the warp reads the other. That leaves room for
 //   28 warps an SM, which measured faster than deeper rings with fewer warps
-//   (PERF.md, PR 5).
+//   (PERF.md).
 //   A lane reads granules t and t+1 of a row and funnel-shifts its 16 bytes
 //   out of them. Output runs the other way: lane t assembles the aligned
 //   output granule holding its first byte from lane t-1's last bytes
@@ -168,7 +168,7 @@ rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
 
     // Load cursor: the row batch lj and tile lt0 of step ls.
     int ls = 0, lj = 0, lt0 = begin;
-    auto issue = [&]() {
+    auto load_next = [&]() {
       if (ls < steps) {
         const uint32_t dst = wring_s + (ls % kStages) * kStageBytes;
 #pragma unroll
@@ -191,7 +191,7 @@ rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
       cp_async_commit();
     };
 #pragma unroll
-    for (int i = 0; i < kStages - 1; ++i) issue();
+    for (int i = 0; i < kStages - 1; ++i) load_next();
 
     int parity = 0, j = 0, g = 0, t0 = begin;
     uint32_t acc[16];
@@ -200,7 +200,7 @@ rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
     for (int step = 0; step < steps; ++step) {
       cp_async_wait<kStages - 2>();
       __syncwarp();  // this step's granules landed for every lane; the last step's stage is free
-      issue();
+      load_next();
       const uint8_t* stage = wring + (step % kStages) * kStageBytes;
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {

@@ -48,8 +48,8 @@ _PTXAS_FUNCTION = re.compile(r"Compiling entry function '([^']+)'")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
-WIDTHS = ("LDG.E.128", "LDG.E.64", "LDG.E", "LDG.E.U16", "LDG.E.U8", "STG.E.128", "STG.E.64", "STG.E",
-          "STG.E.U16", "STG.E.U8", "LDS", "PRMT", "SHFL", "LDL", "STL")
+WIDTHS = ("LDGSTS", "LDG.E.128", "LDG.E.64", "LDG.E", "LDG.E.U16", "LDG.E.U8", "STG.E.128", "STG.E.64",
+          "STG.E", "STG.E.U16", "STG.E.U8", "LDS", "PRMT", "SHFL", "LDL", "STL")
 _WIDTH_SUFFIXES = ("128", "64", "U16", "S16", "U8", "S8")
 
 
@@ -80,10 +80,11 @@ def ptxas_report() -> dict:
 def sass_widths(lines: list[str]) -> dict:
     """Instruction counts by opcode, with global loads and stores keyed by
     their width (LDG.E.128.CONSTANT counts as LDG.E.128, a 32-bit LDG.E.STRONG
-    as LDG.E)."""
+    as LDG.E). LDGSTS, the cp.async copy, is keyed by its own name."""
     full: collections.Counter = collections.Counter()
     for line in lines:
-        if m := _SASS_OPCODE.search(line):
+        m = _SASS_OPCODE.search(line)
+        if m and "@!PT " not in line:  # never-executed padding (e.g. dummy LDS beside LDGSTS)
             full[m.group(1)] += 1
     widths = dict.fromkeys(WIDTHS, 0)
     for op, n in full.items():
