@@ -20,7 +20,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    be equal (tolerance: exact). Times come from CUDA events, each launch on
    rows not in the L2 cache: the RS kernel at [64, 12, 87382] contiguous,
    on the encode view at B = 16 and 64 and a 4-row reconstruct at B = 16,
-   each with its bytes bound; the hash at [16, 87382] and [1024, 87382].
+   each with its bytes bound; the hash at [16, 87382], [64, 87382] (heal's
+   verify batch and its rebuilt-row hash, 16 blocks x 4 rows) and
+   [1024, 87382].
 3. The slice: one 16-drive 12+4 erasure set under a temp dir, driven through
    ErasureObjects with BatchingDeviceCodec(max_batch=64): PUT one 128 MiB
    object, then 8 concurrent 16 MiB objects; GET each back byte-exact;
@@ -31,6 +33,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    by their (B, R).
    A small object is also PUT through a numpy HostCodec stack and its part
    files must equal the device stack's byte for byte.
+4. The rest of the erasure set, on the same set and codec, each path with
+   the launch counts reset just before it and read just after (each kernel
+   must have launched in each):
+   - heal: the part files phase 3 removed were kept; heal_object rebuilds
+     them for all 9 objects (4 drives each, byte-identical to the removed
+     files, xl.meta erasure fields unchanged), through reconstruct_batch(...,
+     with_digests=True): the RS kernel at (B, R) = (16, 4), then the hash
+     kernel on the rebuilt rows at N = 64, with no window on the host codec;
+     then one flipped byte in a healthy row of the big object heals
+     (1 drive). A GET of every object is then byte-exact with the part
+     files of 4 other drives removed;
+   - multipart: four 8 MiB parts from 4 threads and a last part of
+     1 MiB + 37 B, completed (ETag "-5", GET byte-exact); the same upload on
+     a numpy HostCodec set must leave byte-identical part.N files; an
+     aborted upload leaves list_multipart_uploads;
+   - the legacy whole-file bitrot layout: a sha256 PUT of 3 MiB + 37 B (its
+     RS encode on the card), a GET, and a heal of one lost row.
+   Besides, once each and with no kernel: put_object_metadata, a versioned
+   delete marker (GET: not found), a physical delete, list_buckets,
+   delete_bucket (a non-empty bucket refuses), and transition_object then
+   the metadata-only heal of the transitioned version.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -229,7 +252,12 @@ def phase_kernels(dev: torch.device) -> dict:
     verify = rand((48, 16, S_FULL))
     turn = itertools.cycle(range(48))
     hh_ms_n16 = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(verify[next(turn)]), 96)
-    del verify
+    # Heal's shape: 64 streams (a 16-block window's 4 rebuilt rows, and a
+    # verify batch), over 12 batches (67 MB) for cold rows.
+    heal = verify.view(12, 64, S_FULL)
+    turn = itertools.cycle(range(12))
+    hh_ms_n64 = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(heal[next(turn)]), 24)
+    del verify, heal
 
     def hh_bound(n: int) -> tuple[float, str]:
         nbytes = n * S_FULL + n * 32
@@ -242,8 +270,10 @@ def phase_kernels(dev: torch.device) -> dict:
 
     hh_bound_ms, hh_bound_by = hh_bound(1024)
     hh_bound_ms_n16, _ = hh_bound(16)
+    hh_bound_ms_n64, _ = hh_bound(64)
     log(f"kernel hh256 ok: [1024,{S_FULL}] {hh_ms:.4f} ms (plain {hh_plain_ms:.1f} ms, bound {hh_bound_ms:.4f} ms); "
-        f"[16,{S_FULL}] {hh_ms_n16:.4f} ms (plain {hh_plain_ms_n16:.1f} ms, bound {hh_bound_ms_n16:.6f} ms)")
+        f"[16,{S_FULL}] {hh_ms_n16:.4f} ms (plain {hh_plain_ms_n16:.1f} ms, bound {hh_bound_ms_n16:.6f} ms); "
+        f"[64,{S_FULL}] {hh_ms_n64:.4f} ms (bound {hh_bound_ms_n64:.6f} ms)")
     return {
         "rs_gf_apply": {
             "name": "rs_gf_apply", "route": "cuda", "source": "minio_tpu_torch/csrc/rs_gf.cu",
@@ -258,6 +288,7 @@ def phase_kernels(dev: torch.device) -> dict:
             "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound_ms,
             "bound_by": hh_bound_by, "library_ms": None, "shape": [1024, S_FULL],
             "ms_n16": hh_ms_n16, "plain_ms_n16": hh_plain_ms_n16, "bound_ms_n16": hh_bound_ms_n16,
+            "ms_n64": hh_ms_n64, "bound_ms_n64": hh_bound_ms_n64,
         },
     }
 
@@ -278,95 +309,127 @@ def _make_set(root: str, codec):
     return eo, drives
 
 
-def _part_path(drive, key: str) -> str:
+def _data_dir(drive, key: str) -> str:
     obj = os.path.join(drive.root, "bench", key)
-    data_dir = next(n for n in os.listdir(obj) if n != "xl.meta")
-    return os.path.join(obj, data_dir, "part.1")
+    return os.path.join(obj, next(n for n in os.listdir(obj) if n != "xl.meta"))
+
+
+def _part_path(drive, key: str, part: int = 1) -> str:
+    return os.path.join(_data_dir(drive, key), f"part.{part}")
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def _part_files(drives, key: str) -> list[bytes]:
-    out = []
-    for d in drives:
-        with open(_part_path(d, key), "rb") as f:
-            out.append(f.read())
-    return out
+    return [_read(_part_path(d, key)) for d in drives]
 
 
-def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int = 16) -> dict:
+class Tally:
+    """Counts each kernel's launches by shape beside the wrappers' own
+    counts: the hash kernel's by N (its third argument), the RS kernel's by
+    (B, R) (its sixth and eighth). reset() zeroes every count just before a
+    path; read() reads them just after."""
+
+    def __init__(self):
+        from minio_tpu_torch.ops import highwayhash_cuda, rs_cuda
+
+        self.kernels = {"rs_gf_apply": rs_cuda.KERNEL, "hh256": highwayhash_cuda.KERNEL}
+        self.hh_by_n: collections.Counter = collections.Counter()
+        self.rs_by_br: collections.Counter = collections.Counter()
+        self._lock = threading.Lock()
+        hh_launch = highwayhash_cuda.KERNEL.launch
+        rs_launch = rs_cuda.KERNEL.launch
+
+        def hh_launch_tallied(*args):
+            hh_launch(*args)
+            with self._lock:
+                self.hh_by_n[args[2]] += 1
+
+        def rs_launch_tallied(*args):
+            rs_launch(*args)
+            with self._lock:
+                self.rs_by_br[(args[5], args[7])] += 1
+
+        highwayhash_cuda.KERNEL.launch = hh_launch_tallied
+        rs_cuda.KERNEL.launch = rs_launch_tallied
+
+    def reset(self) -> None:
+        with self._lock:
+            for k in self.kernels.values():
+                k.launches = 0
+            self.hh_by_n.clear()
+            self.rs_by_br.clear()
+
+    def read(self, path: str) -> dict:
+        """The counts of one path; raises if a kernel did not launch in it."""
+        with self._lock:
+            out = {
+                "launches": {name: k.launches for name, k in self.kernels.items()},
+                "hh256_by_n": dict(sorted(self.hh_by_n.items())),
+                "rs_gf_apply_by_b_r": dict(sorted(self.rs_by_br.items())),
+            }
+        for name, n in out["launches"].items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was not launched on the {path} path")
+        log(f"{path}: launches {json.dumps(out['launches'])}; hh256 by N "
+            f"{json.dumps(out['hh256_by_n'])}; rs_gf_apply by (B, R) "
+            f"{json.dumps({f'B={b},R={r}': c for (b, r), c in out['rs_gf_apply_by_b_r'].items()})}")
+        return out
+
+    def uninstall(self) -> None:
+        for k in self.kernels.values():
+            k.__dict__.pop("launch", None)
+
+
+def phase_slice(dev, smi: str, root: str, codec, tally: Tally, big_mib: int = 128, small_mib: int = 16):
     from minio_tpu_torch.object.codec import HostCodec
-    from minio_tpu_torch.ops import highwayhash_cuda, rs_cuda
     from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
 
     rng = np.random.default_rng(20)
     big = rng.integers(0, 256, big_mib * MiB, dtype=np.uint8).tobytes()
     smalls = [rng.integers(0, 256, small_mib * MiB, dtype=np.uint8).tobytes() for _ in range(8)]
-    root = tempfile.mkdtemp(prefix="chip_smoke_")
-    codec = BatchingDeviceCodec(max_batch=64, device=dev)
-    try:
-        eo, drives = _make_set(os.path.join(root, "gpu"), codec)
-        # Tally the hash kernel's launches by N (its third argument) beside
-        # the wrapper's own count.
-        hh_by_n: collections.Counter = collections.Counter()
-        tally_lock = threading.Lock()
-        hh_launch = highwayhash_cuda.KERNEL.launch
+    payloads = {"big": big, **{f"small{i}": smalls[i] for i in range(8)}}
+    eo, drives = _make_set(os.path.join(root, "gpu"), codec)
+    tally.reset()
 
-        def hh_launch_tallied(*args):
-            hh_launch(*args)
-            with tally_lock:
-                hh_by_n[args[2]] += 1
+    t0 = time.perf_counter()
+    eo.put_object("bench", "big", big)
+    put_big = time.perf_counter() - t0
+    put_big_launches = (tally.kernels["rs_gf_apply"].launches, tally.kernels["hh256"].launches)
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda i: eo.put_object("bench", f"small{i}", smalls[i]), range(8)))
+    put_small = time.perf_counter() - t0
 
-        highwayhash_cuda.KERNEL.launch = hh_launch_tallied
-        # And the RS kernel's by (B, R): its sixth and eighth arguments.
-        rs_by_br: collections.Counter = collections.Counter()
-        rs_launch = rs_cuda.KERNEL.launch
-
-        def rs_launch_tallied(*args):
-            rs_launch(*args)
-            with tally_lock:
-                rs_by_br[(args[5], args[7])] += 1
-
-        rs_cuda.KERNEL.launch = rs_launch_tallied
-        rs_cuda.KERNEL.launches = 0
-        highwayhash_cuda.KERNEL.launches = 0
-
-        t0 = time.perf_counter()
-        eo.put_object("bench", "big", big)
-        put_big = time.perf_counter() - t0
-        put_big_launches = (rs_cuda.KERNEL.launches, highwayhash_cuda.KERNEL.launches)
-        t0 = time.perf_counter()
+    def get_all():
+        t = time.perf_counter()
+        if eo.get_object("bench", "big")[1] != big:
+            raise AssertionError("GET big: bytes differ")
+        t_big = time.perf_counter() - t
+        t = time.perf_counter()
         with cf.ThreadPoolExecutor(8) as ex:
-            list(ex.map(lambda i: eo.put_object("bench", f"small{i}", smalls[i]), range(8)))
-        put_small = time.perf_counter() - t0
+            got = list(ex.map(lambda i: eo.get_object("bench", f"small{i}")[1], range(8)))
+        if got != smalls:
+            raise AssertionError("GET small: bytes differ")
+        return t_big, time.perf_counter() - t
 
-        def get_all():
-            t = time.perf_counter()
-            if eo.get_object("bench", "big")[1] != big:
-                raise AssertionError("GET big: bytes differ")
-            t_big = time.perf_counter() - t
-            t = time.perf_counter()
-            with cf.ThreadPoolExecutor(8) as ex:
-                got = list(ex.map(lambda i: eo.get_object("bench", f"small{i}")[1], range(8)))
-            if got != smalls:
-                raise AssertionError("GET small: bytes differ")
-            return t_big, time.perf_counter() - t
-
-        get_big, get_small = get_all()
-        # Lose the part files of 4 drives (their xl.meta stays): which shard
-        # rows those drives hold varies per object, so some objects lose
-        # data rows and their GETs rebuild them with the reconstruct kernel.
-        for key in ["big"] + [f"small{i}" for i in range(8)]:
-            for i in (3, 7, 11, 15):
-                os.remove(_part_path(drives[i], key))
-        dget_big, dget_small = get_all()
-        launches = {"rs_gf_apply": rs_cuda.KERNEL.launches, "hh256": highwayhash_cuda.KERNEL.launches}
-        st = codec.stats()
-    finally:
-        highwayhash_cuda.KERNEL.__dict__.pop("launch", None)
-        rs_cuda.KERNEL.__dict__.pop("launch", None)
-        codec.close()
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    get_big, get_small = get_all()
+    # Lose the part files of 4 drives (their xl.meta stays): which shard
+    # rows those drives hold varies per object, so some objects lose
+    # data rows and their GETs rebuild them with the reconstruct kernel.
+    # Their bytes are kept for phase 4's heal.
+    lost = {}
+    for key in payloads:
+        for i in LOST:
+            path = _part_path(drives[i], key)
+            lost[(key, i)] = _read(path)
+            os.remove(path)
+    dget_big, dget_small = get_all()
+    counts = tally.read("PUT/GET/degraded GET")
+    st = codec.stats()
     if not (st["batches_run"] > 0 and st["recon_batches_run"] > 0 and st["digests_verified"] > 0):
         raise AssertionError(f"device counters did not move: {st}")
     if st["host_fallback_blocks"] != 0:
@@ -375,9 +438,6 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
     log(f"slice stats: {json.dumps(st)}")
     log(f"launches during the {big_mib} MiB PUT: rs_gf_apply {put_big_launches[0]}, "
         f"hh256 {put_big_launches[1]}")
-    log(f"hh256 launches on the main path by N: {json.dumps(dict(sorted(hh_by_n.items())))}")
-    rs_by_br = {f"B={b},R={r}": n for (b, r), n in sorted(rs_by_br.items())}
-    log(f"rs_gf_apply launches on the main path by (B, R): {json.dumps(rs_by_br)}")
     log(f"PUT {big_mib} MiB: {gib_big / put_big:.3f} GiB/s; "
         f"PUT 8x{small_mib} MiB concurrent: {gib_small / put_small:.3f} GiB/s [{smi}]")
     log(f"GET {big_mib} MiB: {gib_big / get_big:.3f} GiB/s; "
@@ -400,23 +460,233 @@ def phase_slice(dev: torch.device, smi: str, big_mib: int = 128, small_mib: int 
             raise AssertionError("GET ref: bytes differ")
     finally:
         codec2.close()
-        shutil.rmtree(root, ignore_errors=True)
     log("reference check ok: 16 part files byte-identical to the numpy host codec")
-    return launches, dict(sorted(hh_by_n.items())), rs_by_br
+    return eo, drives, payloads, lost, counts
+
+
+LOST = (3, 7, 11, 15)  # the drives whose part files phase 3 removes
+OTHERS = (0, 4, 8, 12)  # removed after the heal, for a degraded GET
+
+
+def _erasure_fields(fi) -> tuple:
+    e = fi.erasure
+    return (e.data_blocks, e.parity_blocks, e.block_size, e.index, list(e.distribution),
+            [dict(c) for c in e.checksums], [(p.number, p.size) for p in fi.parts], fi.size)
+
+
+def _raised(fn) -> str:
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the class name is what is checked
+        return type(e).__name__
+    return "no error"
+
+
+def phase_heal(smi: str, eo, drives, codec, tally: Tally, payloads: dict, lost: dict) -> dict:
+    """Heal every object of phase 3, then a flipped byte, then a degraded
+    GET of the healed set."""
+    before = codec.stats()
+    fields = {key: [_erasure_fields(d.read_version("bench", key)) for d in drives] for key in payloads}
+    tally.reset()
+    t0 = time.perf_counter()
+    for key in payloads:
+        res = eo.heal_object("bench", key)
+        if res.disks_healed != len(LOST) or [
+            i for i, s in enumerate(res.after_drive_state) if s == "healed"
+        ] != list(LOST):
+            raise AssertionError(f"heal {key}: {res}")
+    heal_s = time.perf_counter() - t0
+    counts = tally.read("heal")
+    after = codec.stats()
+    for key in payloads:
+        for i in LOST:
+            if _read(_part_path(drives[i], key)) != lost[(key, i)]:
+                raise AssertionError(f"heal {key}: drive {i}'s part file differs from the removed one")
+        if [_erasure_fields(d.read_version("bench", key)) for d in drives] != fields[key]:
+            raise AssertionError(f"heal {key}: xl.meta erasure fields changed")
+    moved = {k: after[k] - before[k] for k in
+             ("recon_batches_run", "blocks_reconstructed", "digests_verified", "host_fallback_recon_blocks",
+              "verify_batches_run", "device_recon_seconds", "device_verify_seconds")}
+    if moved["recon_batches_run"] <= 0 or moved["digests_verified"] <= 0:
+        raise AssertionError(f"heal: device counters did not move: {moved}")
+    if moved["host_fallback_recon_blocks"] != 0:
+        raise AssertionError(f"heal: windows went to the host codec: {moved}")
+    windows = sum(-(-len(p) // MiB // 16) for p in payloads.values())
+    if counts["rs_gf_apply_by_b_r"].get((16, len(LOST)), 0) != windows:
+        raise AssertionError(f"heal: expected {windows} reconstructs at (16, 4): {counts}")
+    if counts["hh256_by_n"].get(16 * len(LOST), 0) < windows:
+        raise AssertionError(f"heal: expected >= {windows} rebuilt-row hashes at N = 64: {counts}")
+    nbytes = sum(len(p) for p in payloads.values())
+    log(f"heal stats moved: {json.dumps(moved)}")
+    log(f"heal of {len(payloads)} objects ({nbytes / MiB:.0f} MiB, 4 lost drives each): "
+        f"{nbytes / 2**30 / heal_s:.3f} GiB/s [{smi}]")
+
+    # One flipped byte in a healthy row of the big object.
+    path = _part_path(drives[1], "big")
+    good = _read(path)
+    with open(path, "r+b") as f:
+        f.seek(2 * (S_FULL + 32) + 32 + 999)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0x3C]))
+    tally.reset()
+    res = eo.heal_object("bench", "big")
+    counts_flip = tally.read("heal of a flipped byte")
+    if res.disks_healed != 1 or res.after_drive_state[1] != "healed" or _read(path) != good:
+        raise AssertionError(f"heal of a flipped byte: {res}")
+    log("heal of one flipped byte ok: 1 drive healed, the file restored")
+
+    # The healed set serves a GET with the part files of 4 other drives gone.
+    for key in payloads:
+        for i in OTHERS:
+            os.remove(_part_path(drives[i], key))
+    for key, data in payloads.items():
+        if eo.get_object("bench", key)[1] != data:
+            raise AssertionError(f"GET {key} after heal: bytes differ")
+    log(f"GET of all {len(payloads)} healed objects byte-exact with drives {OTHERS} removed")
+    return {"heal": counts, "heal_flipped_byte": counts_flip}
+
+
+def phase_multipart(smi: str, root: str, eo, codec, tally: Tally, part_mib: int = 8) -> dict:
+    from minio_tpu_torch.object.codec import HostCodec
+
+    rng = np.random.default_rng(21)
+    parts = [rng.integers(0, 256, part_mib * MiB, dtype=np.uint8).tobytes() for _ in range(4)]
+    parts.append(rng.integers(0, 256, MiB + 37, dtype=np.uint8).tobytes())
+    data = b"".join(parts)
+
+    def upload(target) -> tuple:
+        mp = target.multipart
+        uid = mp.new_multipart_upload("bench", "mp")
+        with cf.ThreadPoolExecutor(4) as ex:
+            infos = list(ex.map(lambda n: mp.put_object_part("bench", "mp", uid, n, parts[n - 1]), range(1, 5)))
+        infos.append(mp.put_object_part("bench", "mp", uid, 5, parts[4]))
+        return mp.complete_multipart_upload("bench", "mp", uid, [(p.number, p.etag) for p in infos])
+
+    before = codec.stats()
+    tally.reset()
+    t0 = time.perf_counter()
+    oi = upload(eo)
+    mp_s = time.perf_counter() - t0
+    counts = tally.read("multipart")
+    after = codec.stats()
+    log("multipart stats moved: " + json.dumps({k: after[k] - before[k] for k in (
+        "batches_run", "blocks_encoded", "blocks_padded", "host_fallback_blocks", "device_encode_seconds")}))
+    if not oi.etag.endswith("-5") or oi.size != len(data):
+        raise AssertionError(f"multipart: {oi}")
+    if eo.get_object("bench", "mp")[1] != data:
+        raise AssertionError("multipart GET: bytes differ")
+    log(f"multipart PUT ({len(parts)} parts, {len(data) / MiB:.2f} MiB, 4 parts from 4 threads): "
+        f"{len(data) / 2**30 / mp_s:.3f} GiB/s [{smi}]")
+    # The same upload through a numpy HostCodec set: same part.N files.
+    eo_host, drives_host = _make_set(os.path.join(root, "mp-host"), HostCodec())
+    oi_host = upload(eo_host)
+    if oi_host.etag != oi.etag:
+        raise AssertionError(f"multipart: ETag {oi.etag} differs from the host codec's {oi_host.etag}")
+    for i, (d, h) in enumerate(zip(eo.disks, drives_host)):
+        for n in range(1, 6):
+            if _read(_part_path(d, "mp", n)) != _read(_part_path(h, "mp", n)):
+                raise AssertionError(f"multipart: drive {i} part.{n} differs from the host codec's")
+    # An aborted upload leaves the listing.
+    uid = eo.multipart.new_multipart_upload("bench", "mp-aborted")
+    eo.multipart.put_object_part("bench", "mp-aborted", uid, 1, parts[4])
+    listed = [u["upload_id"] for u in eo.multipart.list_multipart_uploads("bench")]
+    eo.multipart.abort_multipart_upload("bench", "mp-aborted", uid)
+    if uid not in listed or uid in [u["upload_id"] for u in eo.multipart.list_multipart_uploads("bench")]:
+        raise AssertionError("multipart: the aborted upload is still listed")
+    log("multipart ok: ETag -5, GET byte-exact, 80 part files byte-identical to the numpy host codec, "
+        "abort leaves the listing")
+    return {"multipart": counts}
+
+
+def phase_object_ops(eo, drives) -> None:
+    """The operations that run no kernel, once each."""
+    from minio_tpu_torch.control import tiering
+    from minio_tpu_torch.object.types import DeleteObjectOptions, PutObjectOptions
+
+    eo.put_object_metadata("bench", "small0", updates={"x-amz-meta-color": "blue"})
+    if eo.get_object_info("bench", "small0").user_defined.get("x-amz-meta-color") != "blue":
+        raise AssertionError("put_object_metadata: not applied")
+    eo.put_object("bench", "versioned", b"v" * 300_000, PutObjectOptions(versioned=True))
+    marker = eo.delete_object("bench", "versioned", DeleteObjectOptions(versioned=True))
+    if not marker.delete_marker or _raised(lambda: eo.get_object("bench", "versioned")) != "ObjectNotFound":
+        raise AssertionError("delete marker: the object still reads")
+    eo.delete_object("bench", "small7")
+    if _raised(lambda: eo.get_object("bench", "small7")) != "ObjectNotFound":
+        raise AssertionError("physical delete: the object still reads")
+    eo.make_bucket("empty")
+    if [b.name for b in eo.list_buckets()] != ["bench", "empty"]:
+        raise AssertionError(f"list_buckets: {eo.list_buckets()}")
+    if _raised(lambda: eo.delete_bucket("bench")) != "BucketNotEmpty":
+        raise AssertionError("delete_bucket: a non-empty bucket was not refused")
+    eo.delete_bucket("empty")
+    if [b.name for b in eo.list_buckets()] != ["bench"]:
+        raise AssertionError("delete_bucket: the empty bucket is still listed")
+    eo.transition_object("bench", "small6", "", "WARM", "remote/small6")
+    for i in (2, 9):
+        shutil.rmtree(os.path.join(drives[i].root, "bench", "small6"))
+    res = eo.heal_object("bench", "small6")
+    meta = drives[9].read_version("bench", "small6").metadata
+    if res.disks_healed != 2 or meta.get(tiering.META_TRANSITION_STATUS) != tiering.STATUS_COMPLETE:
+        raise AssertionError(f"heal of a transitioned version: {res}")
+    log("put_object_metadata, delete marker, physical delete, list_buckets, delete_bucket, "
+        "transition_object + metadata heal ok")
+
+
+def phase_whole_file(eo, drives, tally: Tally) -> dict:
+    from minio_tpu_torch.object.types import PutObjectOptions
+
+    data = np.random.default_rng(22).integers(0, 256, 3 * MiB + 37, dtype=np.uint8).tobytes()
+    tally.reset()
+    eo.put_object("bench", "whole", data, PutObjectOptions(bitrot_algorithm="sha256"))
+    counts = tally.read("whole-file PUT")
+    if eo.get_object("bench", "whole")[1] != data:
+        raise AssertionError("whole-file GET: bytes differ")
+    path = _part_path(drives[5], "whole")
+    good = _read(path)
+    os.remove(path)
+    res = eo.heal_object("bench", "whole")
+    if res.disks_healed != 1 or _read(path) != good:
+        raise AssertionError(f"whole-file heal: {res}")
+    sums = drives[5].read_version("bench", "whole").erasure.checksums
+    if [(c["part"], c["algo"]) for c in sums] != [(1, "sha256")]:
+        raise AssertionError(f"whole-file heal: checksums {sums}")
+    log("whole-file layout (sha256) ok: PUT, GET byte-exact, heal of one lost row")
+    return {"whole_file_put": counts}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
+
     dev = torch.device("cuda", 0)
     smi = phase_gpu_and_build()
     kernels = phase_kernels(dev)
-    launches, hh_by_n, rs_by_br = phase_slice(dev, smi)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    codec = BatchingDeviceCodec(max_batch=64, device=dev)
+    tally = Tally()
+    try:
+        eo, drives, payloads, lost, main_counts = phase_slice(dev, smi, root, codec, tally)
+        paths = {"put_get_degraded_get": main_counts}
+        paths.update(phase_heal(smi, eo, drives, codec, tally, payloads, lost))
+        paths.update(phase_multipart(smi, root, eo, codec, tally))
+        phase_object_ops(eo, drives)
+        paths.update(phase_whole_file(eo, drives, tally))
+    finally:
+        tally.uninstall()
+        codec.close()
+        shutil.rmtree(root, ignore_errors=True)
     for name, rec in kernels.items():
-        rec["launches"] = launches[name]
-    kernels["hh256"]["launches_by_n"] = {str(n): c for n, c in hh_by_n.items()}
-    kernels["rs_gf_apply"]["launches_by_b_r"] = rs_by_br
+        rec["launches"] = main_counts["launches"][name]
+        rec["launches_by_path"] = {path: c["launches"][name] for path, c in paths.items()}
+    for path in ("put_get_degraded_get", "heal", "multipart"):
+        suffix = "" if path == "put_get_degraded_get" else f"_{path}"
+        kernels["hh256"][f"launches_by_n{suffix}"] = {str(n): c for n, c in paths[path]["hh256_by_n"].items()}
+        kernels["rs_gf_apply"][f"launches_by_b_r{suffix}"] = {
+            f"B={b},R={r}": c for (b, r), c in paths[path]["rs_gf_apply_by_b_r"].items()
+        }
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,8 +1,9 @@
 """minio_tpu_torch: the erasure object store on PyTorch and CUDA.
 
 A port of the JAX package ``minio_tpu`` to one NVIDIA H100: the same
-PutObject/GetObject path of one erasure set (object/erasure.py), the same
-batching codec (parallel/batching.py) and the same on-disk bytes, with the
+object layer of one erasure set (object/erasure.py: PUT, GET, heal, deletes,
+metadata, buckets; object/multipart.py), the same batching codec
+(parallel/batching.py) and the same on-disk bytes, with the
 two device kernels -- Reed-Solomon GF(2^8) coding and HighwayHash-256 --
 written by hand in CUDA C++ for sm_90a (csrc/). Entry points run on "cuda"
 unless the caller passes device="cpu", where the kernels' plain torch

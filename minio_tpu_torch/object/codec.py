@@ -75,13 +75,31 @@ class BlockCodec(abc.ABC):
 
         return bitrot.digests_of_batch(chunks)
 
+    def encode_frames(self, blocks: list[bytes], k: int, m: int) -> "list[bytes | memoryview]":
+        """Per shard ROW: concatenated H(chunk)||chunk frames across blocks.
+
+        This is the byte image appended to each drive's staged shard file
+        (streaming-bitrot layout, cmd/bitrot-streaming.go:43-65), built from
+        encode()'s chunks+digests. Rows are bytes-LIKE (buffer protocol):
+        consumers write them to files/HTTP bodies and must not assume
+        hashability or msgpack support."""
+        encoded = self.encode(blocks, k, m)
+        rows: list[bytes] = []
+        for row in range(k + m):
+            parts: list[bytes] = []
+            for chunks, digests in encoded:
+                parts.append(digests[row])
+                parts.append(chunks[row])
+            rows.append(b"".join(parts))
+        return rows
+
     def encode_group(self, blocks: list, k: int, m: int) -> "EncodedGroup":
-        """Scatter form of the encoded group: per-row IOVEC LISTS, so the
-        fan-out hands each drive its whole group as views (one os.writev)
-        and never materializes row bytes. The concatenation of a row's
-        iovecs is that drive's digest||chunk frame image for the group.
-        Also carries the data-row digest stream the fast etag hashes
-        (block-major, rows 0..k-1)."""
+        """Scatter form of encode_frames: per-row IOVEC LISTS instead of
+        joined row images, so the fan-out hands each drive its whole group
+        as views (one os.writev) and never materializes row bytes. The
+        concatenation of a row's iovecs is byte-identical to
+        encode_frames()[row]. Also carries the data-row digest stream the
+        fast etag hashes (block-major, rows 0..k-1)."""
         encoded = self.encode(blocks, k, m)
         iovecs: list[list] = []
         for row in range(k + m):

@@ -2,16 +2,21 @@
 
 Role of the reference's erasureObjects (cmd/erasure-object.go, erasure.go):
 the object semantics above per-drive storage -- quorum writes with atomic
-rename commit (putObject :752-1021) and quorum metadata reads + shard decode
-(getObjectWithFileInfo :223-357).
+rename commit (putObject :752-1021), quorum metadata reads + shard decode
+(getObjectWithFileInfo :223-357), versioned deletes with markers, and
+decode+re-encode healing (erasure-healing.go:257).
 
-This is the slice of the JAX package's object layer that PutObject and
-GetObject reach: bucket create/stat, inline and streaming PUT, and the
-healthy and degraded streaming GET. Erasure math and bitrot hashing run
-through a BlockCodec (object/codec.py); the batching codec
+This is the JAX package's object layer for one erasure set: buckets
+(create, stat, list, delete), inline and streaming PUT in the streaming
+bitrot layout and in the legacy whole-file layout, the healthy and degraded
+streaming GET of both, metadata updates, deletes, tier transitions, heal,
+and multipart uploads (object/multipart.py). Erasure math and bitrot
+hashing run through a BlockCodec (object/codec.py); the batching codec
 (parallel/batching.py) puts full blocks on the GPU kernels. GET-side frame
-verification goes through ``codec.digests_batch``, so on the card it runs
-the HighwayHash kernel.
+verification and heal's verify go through ``codec.digests_batch``, and
+heal's rebuild through ``codec.reconstruct_batch(..., with_digests=True)``,
+so on the card they run the HighwayHash and Reed-Solomon kernels. Whole-file
+checksums are host hashes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from . import codec as codec_mod
 from . import metadata as meta_mod
 from .types import (
     BucketInfo,
+    DeleteObjectOptions,
     GetObjectOptions,
+    HealResultItem,
     ObjectInfo,
     PutObjectOptions,
 )
@@ -414,6 +421,30 @@ class _GetStager:
             closer()
 
 
+def data_windows(data) -> "Iterator[_Window]":
+    """bytes-like | .read()/.readinto() stream -> window iterator (the
+    multipart entry point; put_object opens the stream itself so it can
+    peek the first window for the inline-threshold decision)."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return _buffer_windows(data)
+    if hasattr(data, "read") or hasattr(data, "readinto"):
+        pool = bufpool.window_pool()
+        pb = pool.acquire()
+        mv = pb.view()
+        try:
+            filled = _fill_window(data, mv)
+        except BaseException:
+            # The propagating traceback pins the reader's frames, which may
+            # hold slices of `mv` this code cannot reach -- discard the
+            # storage instead of recycling it.
+            _quiet_release(mv)
+            pb.discard()
+            raise
+        _quiet_release(mv)
+        return _wrap_readahead(_stream_windows(data, pool, pb, filled))
+    raise TypeError(f"put data must be bytes or a reader, got {type(data)!r}")
+
+
 class _PipelinedMD5:
     """ETag MD5 computed on a side thread, overlapping the encode+hash C
     calls (both release the GIL): on multi-core hosts the ~0.6 GiB/s MD5
@@ -488,6 +519,7 @@ def use_fast_etag(opts) -> bool:
     wins so the header contract stays exact."""
     return (
         not opts.etag
+        and not opts.bitrot_algorithm
         and os.environ.get("MTPU_FAST_ETAG", "1") != "0"
     )
 
@@ -495,7 +527,8 @@ def use_fast_etag(opts) -> bool:
 class ShardStageWriter:
     """Grouped-encode + per-drive staged shard appends with quorum tracking.
 
-    The streaming-write engine of put_object: each GROUP_BLOCKS batch of 1 MiB blocks goes through the codec
+    The streaming-write engine shared by put_object and multipart part
+    uploads: each GROUP_BLOCKS batch of 1 MiB blocks goes through the codec
     as one scatter-encode call, and each drive gets its whole group frame as
     ONE gathered append (append_iov) submitted on that drive's I/O lane
     (utils/iopool.py) -- writes overlap the next group's read+encode, with
@@ -506,13 +539,22 @@ class ShardStageWriter:
     (The reference's parallelWriter + Encode loop, erasure-encode.go:29-109.)
     """
 
-    def __init__(self, codec, disks, distribution, k: int, m: int, stage_path):
-        """stage_path(i) -> staged shard-file path under META_BUCKET."""
+    def __init__(self, codec, disks, distribution, k: int, m: int, stage_path, algo=None):
+        """stage_path(i) -> staged shard-file path under META_BUCKET.
+
+        `algo`: a non-streaming BitrotAlgorithm writes the LEGACY whole-file
+        layout (raw shard bytes + one running checksum per row,
+        cmd/bitrot-whole.go:30); None/streaming writes interleaved frames.
+        """
         self.codec = codec
         self.disks = disks
         self.distribution = distribution
         self.k, self.m = k, m
         self.stage_path = stage_path
+        self.algo = algo if algo is not None and not algo.streaming else None
+        self._hashers = (
+            [self.algo.new() for _ in range(k + m)] if self.algo is not None else None
+        )
         self.ok = [d is not None for d in disks]
         self._appended = False
         self._lanes = iopool.shard_writer_pool()
@@ -552,14 +594,17 @@ class ShardStageWriter:
     def append_group(self, group: list) -> bytes | None:
         """Encode one uniform group and submit each drive's gathered append.
 
-        Returns the group's data-row digest stream (the fast-etag input).
-        Writes are asynchronous: a drive failure surfaces in ok[] at the
-        next harvest (or drain()), exactly like the reference's
-        parallelWriter noticing a broken disk one buffer later. Each drive
-        receives its whole group frame as iovec views over the encoder's
-        buffer -- the fan-out moves bytes without joining them."""
+        Returns the group's data-row digest stream (the fast-etag input) on
+        the streaming layout, None on the legacy whole-file layout. Writes
+        are asynchronous: a drive failure surfaces in ok[] at the next
+        harvest (or drain()), exactly like the reference's parallelWriter
+        noticing a broken disk one buffer later. Each drive receives its
+        whole group frame as iovec views over the encoder's buffer -- the
+        fan-out moves bytes without joining them."""
         if not group:
             return None
+        if self._hashers is not None:
+            return self._append_whole(group)
         eg = self.codec.encode_group(group, self.k, self.m)
         self._appended = True
         self._reap()
@@ -581,6 +626,29 @@ class ShardStageWriter:
         self._pending.append(futs)
         return eg.digest_stream
 
+    def _append_whole(self, group: list) -> None:
+        """Whole-file layout: raw chunks, one running digest per row, each
+        drive's row appended synchronously."""
+        encoded = self.codec.encode(group, self.k, self.m)
+        self._appended = True
+        row_frames = []
+        for row in range(self.k + self.m):
+            chunks = [e[0][row] for e in encoded]
+            for c in chunks:
+                self._hashers[row].update(c)
+            row_frames.append(b"".join(chunks))
+
+        def wr(i):
+            if not self.ok[i]:
+                return
+            row = self.distribution[i] - 1
+            self.disks[i].append_file(META_BUCKET, self.stage_path(i), row_frames[row])
+
+        for i, (_, e) in enumerate(meta_mod.parallel_map(wr, range(len(self.disks)))):
+            if e is not None:
+                self.ok[i] = False
+        return None
+
     def drain(self) -> None:
         """Block until every in-flight group write has landed; ok[] is final
         after this returns. Callers drain before commit AND before deleting
@@ -594,6 +662,12 @@ class ShardStageWriter:
 
     def alive(self) -> int:
         return sum(self.ok)
+
+    def whole_checksums(self) -> list[bytes] | None:
+        """Per-row whole-file digests (legacy layout only)."""
+        if self._hashers is None:
+            return None
+        return [h.digest() for h in self._hashers]
 
 
 class _NamespaceLock:
@@ -641,6 +715,50 @@ def default_parity(drive_count: int) -> int:
     if drive_count <= 7:
         return 3
     return 4
+
+
+def _join_block_rows(rows, k: int, need: int) -> bytes:
+    """Join the first k shard rows into EXACTLY `need` bytes of block data.
+
+    Shards pad the tail (k*chunk >= block length); trimming the tail rows
+    first makes the join itself produce the block."""
+    pieces: list = []
+    for j in range(k):
+        r = rows[j]
+        take = min(len(r), need)
+        pieces.append(r if take == len(r) else memoryview(r)[:take])
+        need -= take
+        if need <= 0:
+            break
+    return b"".join(pieces)
+
+
+def _whole_layout(metas) -> bool:
+    """Majority vote across drive metas on the whole-file-bitrot layout.
+
+    The quorum FileInfo representative is an arbitrary matching drive, and
+    erasure.checksums is per-drive (excluded from the quorum key) -- one
+    drive with a lost or spurious checksums list must not flip the decoder
+    for a healthy object."""
+    votes = [bool(m.erasure.checksums) for m in metas if m is not None]
+    return bool(votes) and sum(votes) * 2 > len(votes)
+
+
+def _whole_sum_matches(meta: FileInfo, part_number: int, blob: bytes) -> bool:
+    """Verify a raw whole-file-bitrot row blob against the per-part checksum
+    in the drive's own metadata (cmd/bitrot-whole.go:62 wholeBitrotReader
+    semantics). Shared by the GET and heal paths."""
+    ent = next(
+        (c for c in meta.erasure.checksums if c.get("part") == part_number), None
+    )
+    if ent is None:
+        return False
+    try:
+        algo = bitrot_mod.BitrotAlgorithm(ent.get("algo", ""))
+        want = bytes.fromhex(ent.get("hash", ""))
+    except ValueError:
+        return False
+    return bitrot_mod.digest_of(blob, algo) == want
 
 
 def _frame_shard(chunks: list[bytes], digests: list[bytes]) -> bytes:
@@ -691,6 +809,17 @@ def _verify_frames(codec, chunk_sizes: list[int], parsed) -> list[bool]:
     return flags
 
 
+def _shard_chunk_sizes(total_size: int, k: int) -> list[int]:
+    """Per-block shard chunk sizes for an object of total_size bytes."""
+    sizes = []
+    full_blocks, last = divmod(total_size, BLOCK_SIZE)
+    shard = -(-BLOCK_SIZE // k)
+    sizes.extend([shard] * full_blocks)
+    if last:
+        sizes.append(-(-last // k))
+    return sizes
+
+
 class ErasureObjects:
     """One erasure set: object operations over a fixed list of drives."""
 
@@ -734,6 +863,15 @@ class ErasureObjects:
         return self._codec if self._codec is not None else codec_mod.default_codec()
 
     @property
+    def multipart(self):
+        """Lazy multipart manager (object/multipart.py)."""
+        if not hasattr(self, "_multipart"):
+            from .multipart import MultipartManager
+
+            self._multipart = MultipartManager(self)
+        return self._multipart
+
+    @property
     def drive_count(self) -> int:
         return len(self.disks)
 
@@ -763,6 +901,14 @@ class ErasureObjects:
         result discarded — the cached get_bucket_info does the work)."""
         self.get_bucket_info(bucket)
 
+    def invalidate_bucket_cache(self, bucket: str = "") -> None:
+        """Drop cached bucket info (all buckets when name is empty) — the
+        hook for bucket deletes made through another layer."""
+        if bucket:
+            self._bucket_cache.pop(bucket, None)
+        else:
+            self._bucket_cache.clear()
+
     def get_bucket_info(self, bucket: str) -> BucketInfo:
         cached = self._bucket_cache.get(bucket)
         if cached is not None and cached[0] > time.monotonic():
@@ -784,6 +930,65 @@ class ErasureObjects:
         info = BucketInfo(name=bucket, created=min(v.created for v in vols))
         self._bucket_cache[bucket] = (time.monotonic() + self._bucket_cache_ttl, info)
         return info
+
+    def delete_bucket(self, bucket: str, force: bool = False) -> None:
+        # Invalidate before AND after the fan-out: a concurrent check racing
+        # the rm could re-cache a still-present volume mid-delete.
+        self._bucket_cache.pop(bucket, None)
+
+        def rm(d):
+            if d is None:
+                raise errors.DiskNotFound()
+            d.delete_vol(bucket, force=force)
+
+        results = meta_mod.parallel_map(rm, self._online())
+        self._bucket_cache.pop(bucket, None)
+        errs = [e for _, e in results]
+        n_ok = sum(1 for e in errs if e is None)
+        n_missing = sum(1 for e in errs if isinstance(e, errors.VolumeNotFound))
+        if any(isinstance(e, errors.VolumeNotEmpty) for e in errs):
+            raise errors.BucketNotEmpty(bucket)
+        if n_missing > n_ok:
+            raise errors.BucketNotFound(bucket)
+        quorum = self.drive_count // 2 + 1
+        if n_ok + n_missing < quorum:
+            raise errors.ErasureWriteQuorum(bucket)
+
+    def list_buckets(self) -> list[BucketInfo]:
+        """Aggregate bucket listing across ALL online drives (the reference
+        merges per-drive ListVols, cmd/erasure-sets.go ListBuckets), instead
+        of trusting whichever drive answers first: a drive that missed a
+        MakeBucket (or kept a deleted one) must not define the namespace.
+        A bucket counts if at least half the responding drives hold it."""
+
+        def vols(d):
+            if d is None:
+                raise errors.DiskNotFound()
+            return d.list_vols()
+
+        results = meta_mod.parallel_map(vols, self._online())
+        seen: dict[str, tuple[float, int]] = {}  # name -> (earliest ctime, count)
+        responders = 0
+        for vol_list, err in results:
+            if err is not None or vol_list is None:
+                continue
+            responders += 1
+            for v in vol_list:
+                if v.name.startswith("."):
+                    continue
+                created, count = seen.get(v.name, (v.created, 0))
+                seen[v.name] = (min(created, v.created), count + 1)
+        if responders == 0:
+            return []
+        quorum = max(1, (responders + 1) // 2)
+        return sorted(
+            (
+                BucketInfo(name, created)
+                for name, (created, count) in seen.items()
+                if count >= quorum
+            ),
+            key=lambda b: b.name,
+        )
 
     # ------------------------------------------------------------------- put
 
@@ -811,20 +1016,24 @@ class ErasureObjects:
         version_id = opts.version_id or (str(uuid.uuid4()) if opts.versioned else "")
         mod_time = now()
 
-        # Only the streaming HighwayHash layout is written; naming it
-        # explicitly is the default layout. The legacy whole-file layout is
-        # not part of this package.
-        if opts.bitrot_algorithm and opts.bitrot_algorithm != bitrot_mod.DEFAULT_ALGORITHM.value:
-            raise errors.InvalidArgument(
-                bucket, object_name,
-                f"unsupported bitrot algorithm {opts.bitrot_algorithm!r}",
-            )
+        # Validate the bitrot algorithm up front; naming the default
+        # streaming algorithm explicitly is the default layout, not legacy.
+        wants_whole = False
+        if opts.bitrot_algorithm:
+            try:
+                wants_whole = not bitrot_mod.BitrotAlgorithm(opts.bitrot_algorithm).streaming
+            except ValueError:
+                raise errors.InvalidArgument(
+                    bucket, object_name,
+                    f"unknown bitrot algorithm {opts.bitrot_algorithm!r}",
+                ) from None
 
-        # Buffer payloads are windowed as views in place; readers land
-        # once into a pooled window -- peeked here for the inline
-        # decision.
+        # Whole-file bitrot objects always take the streaming (shard-file)
+        # path: the legacy layout has no inline representation. Buffer
+        # payloads are windowed as views in place; readers land once into a
+        # pooled window -- peeked here for the inline decision.
         if isinstance(data, (bytes, bytearray, memoryview)):
-            if len(data) < SMALL_FILE_THRESHOLD:
+            if len(data) < SMALL_FILE_THRESHOLD and not wants_whole:
                 oi = self._put_inline(
                     bucket, object_name, data, opts, k, m, distribution, version_id, mod_time
                 )
@@ -847,7 +1056,7 @@ class ErasureObjects:
                 pb.discard()
                 raise
             _quiet_release(mv)
-            if filled < SMALL_FILE_THRESHOLD:
+            if filled < SMALL_FILE_THRESHOLD and not wants_whole:
                 head = bytes(pb.view(0, filled))  # the inline blob outlives the pooled window
                 pb.release()
                 oi = self._put_inline(
@@ -880,6 +1089,7 @@ class ErasureObjects:
         data_dir: str,
         base_meta: dict,
         inline_blob: bytes = b"",
+        checksums: list[dict] | None = None,
     ) -> FileInfo:
         return FileInfo(
             volume=bucket,
@@ -896,6 +1106,7 @@ class ErasureObjects:
                 block_size=BLOCK_SIZE,
                 index=shard_row + 1,
                 distribution=list(distribution),
+                checksums=list(checksums or []),
             ),
             inline_data=inline_blob,
         )
@@ -992,8 +1203,14 @@ class ErasureObjects:
         def tmp_dir(i: int) -> str:
             return f"tmp/{upload_id}/{i}"
 
+        whole_algo = None
+        if opts.bitrot_algorithm:
+            whole_algo = bitrot_mod.BitrotAlgorithm(opts.bitrot_algorithm)
+            if whole_algo.streaming:
+                whole_algo = None  # streaming IS the default layout
         writer = ShardStageWriter(
-            self.codec, disks, distribution, k, m, lambda i: f"{tmp_dir(i)}/part.1"
+            self.codec, disks, distribution, k, m, lambda i: f"{tmp_dir(i)}/part.1",
+            algo=whole_algo,
         )
         ok = writer.ok
 
@@ -1010,7 +1227,8 @@ class ErasureObjects:
             meta_mod.parallel_map(rm, list(indices))
 
         # Etag strategy: digest-stream md5 rides the encode for free; the
-        # content-md5 etag (MTPU_FAST_ETAG=0) hashes blocks as they stream.
+        # content-md5 etag (MTPU_FAST_ETAG=0 / explicit algorithms) hashes
+        # blocks as they stream.
         # Created immediately before the try so every failure path reaches
         # the shutdown handler.
         etag_h = hashlib.md5() if use_fast_etag(opts) else None
@@ -1055,11 +1273,21 @@ class ErasureObjects:
 
         etag = opts.etag or (etag_h.hexdigest() if etag_h is not None else md5h.hexdigest())
         base_meta = {"etag": etag, "content-type": opts.content_type, **opts.user_defined}
+        row_sums = writer.whole_checksums()
 
         def commit(i) -> None:
             if not ok[i]:
                 raise errors.DiskNotFound()
             shard_row = distribution[i] - 1
+            checksums = None
+            if row_sums is not None:
+                checksums = [
+                    {
+                        "part": 1,
+                        "algo": whole_algo.value,
+                        "hash": row_sums[shard_row].hex(),
+                    }
+                ]
             fi = self._make_put_fi(
                 bucket,
                 object_name,
@@ -1072,6 +1300,7 @@ class ErasureObjects:
                 mod_time=mod_time,
                 data_dir=data_dir,
                 base_meta=base_meta,
+                checksums=checksums,
             )
             disks[i].rename_data(META_BUCKET, tmp_dir(i), fi, bucket, object_name)
 
@@ -1225,13 +1454,19 @@ class ErasureObjects:
             m is not None and m.inline_data for m in metas_by_shard
         )
 
+        stream_range = (
+            self._stream_part_range_whole
+            if _whole_layout(metas)
+            else self._stream_part_range
+        )
+
         def gen() -> Iterator[bytes]:
             abs_pos = 0
             for part in fi.parts:
                 p_lo = max(offset - abs_pos, 0)
                 p_hi = min(end - abs_pos, part.size)
                 if p_lo < p_hi:
-                    yield from self._stream_part_range(
+                    yield from stream_range(
                         bucket, object_name, fi, by_shard, metas_by_shard,
                         part, inline, p_lo, p_hi,
                     )
@@ -1575,3 +1810,596 @@ class ErasureObjects:
                     _block_pieces(rows_by_block[b - g0], chunk_len(b), s, e)
                 )
         return out
+
+    def _stream_part_range_whole(
+        self,
+        bucket: str,
+        object_name: str,
+        fi: FileInfo,
+        by_shard,
+        metas_by_shard,
+        part: ObjectPartInfo,
+        inline: bool,
+        lo: int,
+        hi: int,
+    ) -> Iterator[bytes]:
+        """Range decode of a LEGACY whole-file-bitrot part.
+
+        The shard files are raw bytes; integrity is one checksum per part
+        per row stored in each drive's own metadata (cmd/bitrot-whole.go:62
+        wholeBitrotReader). Verification therefore reads the ENTIRE row file
+        once (the reference pays the same cost), then blocks are sliced and
+        missing data rows rebuilt with the batched codec.
+        """
+        k = fi.erasure.data_blocks
+        mth = fi.erasure.parity_blocks
+        chunk_full = -(-BLOCK_SIZE // k)
+        nblocks = -(-part.size // BLOCK_SIZE)
+        last_block_len = part.size - (nblocks - 1) * BLOCK_SIZE
+
+        def chunk_len(b: int) -> int:
+            return chunk_full if b < nblocks - 1 else -(-last_block_len // k)
+
+        def block_len(b: int) -> int:
+            return BLOCK_SIZE if b < nblocks - 1 else last_block_len
+
+        part_file = f"part.{part.number}"
+        blobs: list[bytes | None] = [None] * (k + mth)
+        loaded = [False] * (k + mth)
+        # Verification must hash the ENTIRE row file (whole-file semantics,
+        # same cost the reference's wholeBitrotReader pays), but only the
+        # region covering the requested blocks is retained afterwards, so a
+        # small range GET of a large legacy object doesn't hold k full rows.
+        b0, b1 = lo // BLOCK_SIZE, (hi - 1) // BLOCK_SIZE
+        region_off = b0 * chunk_full
+        region_end = (b1 + 1) * chunk_full
+
+        def load_row(j: int) -> bytes | None:
+            meta = metas_by_shard[j]
+            disk = by_shard[j]
+            if meta is None:
+                return None
+            try:
+                if inline:
+                    blob = meta.inline_data or b""
+                else:
+                    if disk is None:
+                        return None
+                    blob = disk.read_file(
+                        bucket, os.path.join(object_name, fi.data_dir, part_file)
+                    )
+            except (errors.DiskError, errors.FileCorrupt):
+                return None
+            if not _whole_sum_matches(meta, part.number, blob):
+                return None  # whole-file bitrot: the entire row is suspect
+            return blob[region_off:region_end]
+
+        def ensure(rows_idx: list[int]) -> None:
+            todo = [j for j in rows_idx if not loaded[j]]
+            if not todo:
+                return
+            results = meta_mod.parallel_map(load_row, todo)
+            for idx, j in enumerate(todo):
+                blobs[j] = results[idx][0] if results[idx][1] is None else None
+                loaded[j] = True
+
+        ensure(list(range(k)))
+        if any(blobs[j] is None for j in range(k)):
+            ensure(list(range(k + mth)))
+        if sum(1 for b in blobs if b is not None) < k:
+            raise errors.InsufficientReadQuorum(bucket, object_name)
+
+        for g0 in range(b0, b1 + 1, GROUP_BLOCKS):
+            g1 = min(g0 + GROUP_BLOCKS - 1, b1)
+            rows_by_block: list[list[bytes | None]] = []
+            for b in range(g0, g1 + 1):
+                cl = chunk_len(b)
+                off = b * chunk_full - region_off
+                rows_by_block.append(
+                    [
+                        blobs[j][off : off + cl] if blobs[j] is not None else None
+                        for j in range(k + mth)
+                    ]
+                )
+            missing = tuple(j for j in range(k) if blobs[j] is None)
+            if missing:
+                results = self.codec.reconstruct_batch(rows_by_block, k, mth, missing)
+                for rows, (chunks, _) in zip(rows_by_block, results):
+                    for slot, j in enumerate(missing):
+                        rows[j] = chunks[slot]
+            for b in range(g0, g1 + 1):
+                joined = _join_block_rows(rows_by_block[b - g0], k, block_len(b))
+                s = max(lo - b * BLOCK_SIZE, 0)
+                e = min(hi - b * BLOCK_SIZE, block_len(b))
+                # Full-range slice of bytes returns the same object, so a
+                # full-block yield is copy-free now that the join is exact.
+                yield joined[s:e]
+
+    # ---------------------------------------------------------------- delete
+
+    def put_object_metadata(
+        self,
+        bucket: str,
+        object_name: str,
+        version_id: str = "",
+        updates: dict[str, str] | None = None,
+        removes: list[str] | None = None,
+    ) -> ObjectInfo:
+        """Update user metadata of an existing version in place
+        (PutObjectMetadata / PutObjectTags, cmd/erasure-object.go equivalent:
+        read quorum FileInfo, mutate metadata, update xl.meta on all drives)."""
+        self._check_bucket(bucket)
+        fi, metas, disks = self._read_quorum_fi(bucket, object_name, version_id)
+        if fi.deleted:
+            raise errors.MethodNotAllowed(bucket, object_name)
+        for k in removes or []:
+            fi.metadata.pop(k, None)
+        fi.metadata.update(updates or {})
+
+        # Each drive keeps ITS OWN FileInfo (per-drive erasure index and
+        # shard checksums differ) -- only the metadata dict is replaced.
+        # Writing the quorum FileInfo verbatim to every drive would clobber
+        # shard identity and corrupt reads.
+        def upd(args):
+            i, d = args
+            if d is None:
+                raise errors.DiskNotFound()
+            own = metas[i]
+            if own is None:
+                raise errors.FileNotFound(bucket, object_name)
+            own.metadata = dict(fi.metadata)
+            d.update_metadata(bucket, object_name, own)
+
+        results = meta_mod.parallel_map(upd, list(enumerate(disks)))
+        errs = [e for _, e in results]
+        write_quorum = fi.write_quorum(self.parity)
+        err = errors.reduce_quorum_errs(
+            errs, write_quorum, errors.InsufficientWriteQuorum(bucket, object_name)
+        )
+        if err is not None:
+            raise err
+        return ObjectInfo.from_file_info(fi, bucket, object_name)
+
+    def transition_object(
+        self,
+        bucket: str,
+        object_name: str,
+        version_id: str,
+        tier: str,
+        remote_name: str,
+        expected_etag: str = "",
+        expected_mtime: float = 0.0,
+    ) -> ObjectInfo:
+        """Mark a version transitioned to a remote tier and free its local
+        data parts (the reference's DeleteObject w/ transition markers in
+        cmd/bucket-lifecycle.go transitionObject + erasure-object.go: xl.meta
+        keeps TransitionStatus/TransitionedObjName/TransitionTier while the
+        shard files are reclaimed). The caller has already uploaded the bytes
+        to the tier under remote_name; expected_etag/mtime guard against the
+        version having been overwritten since the caller read it (otherwise a
+        concurrent PUT on an unversioned bucket would be stamped as pointing
+        at stale tier bytes and lose the new data). Inline (small) objects
+        are left local — reclaiming xl.meta-inline bytes saves nothing."""
+        from ..control.tiering import (
+            META_TRANSITION_NAME,
+            META_TRANSITION_STATUS,
+            META_TRANSITION_TIER,
+            STATUS_COMPLETE,
+        )
+
+        self._check_bucket(bucket)
+        fi, metas, disks = self._read_quorum_fi(bucket, object_name, version_id)
+        if fi.deleted:
+            raise errors.MethodNotAllowed(bucket, object_name)
+        if not fi.data_dir:
+            raise errors.InvalidArgument(bucket, object_name, "inline object not transitionable")
+        if expected_etag and fi.metadata.get("etag", "") != expected_etag:
+            raise errors.PreconditionFailed(msg="object changed since tier upload")
+        if expected_mtime and abs(fi.mod_time - expected_mtime) > 1e-6:
+            raise errors.PreconditionFailed(msg="object changed since tier upload")
+        updates = {
+            META_TRANSITION_STATUS: STATUS_COMPLETE,
+            META_TRANSITION_TIER: tier,
+            META_TRANSITION_NAME: remote_name,
+        }
+        oi = self.put_object_metadata(bucket, object_name, version_id, updates=updates)
+
+        # Metadata is durable first: a crash here leaves orphan part files
+        # (reclaimed by heal/scan) but never a transitioned object whose
+        # local parts are gone without the remote pointer being recorded.
+        def free(d):
+            if d is None:
+                return
+            try:
+                d.delete(bucket, os.path.join(object_name, fi.data_dir), recursive=True)
+            except errors.DiskError:
+                pass
+
+        meta_mod.parallel_map(free, list(disks))
+        return oi
+
+    def delete_object(
+        self, bucket: str, object_name: str, opts: DeleteObjectOptions | None = None
+    ) -> ObjectInfo:
+        return self._delete_object(bucket, object_name, opts)
+
+    def _delete_object(
+        self, bucket: str, object_name: str, opts: DeleteObjectOptions | None = None
+    ) -> ObjectInfo:
+        opts = opts or DeleteObjectOptions()
+        self._check_bucket(bucket)
+        disks = self._online()
+        write_quorum = self.drive_count // 2 + 1
+
+        if opts.versioned and not opts.version_id:
+            # Write a delete marker as the new latest version.
+            marker = FileInfo(
+                volume=bucket,
+                name=object_name,
+                version_id=str(uuid.uuid4()),
+                deleted=True,
+                mod_time=now(),
+            )
+
+            def mark(d):
+                if d is None:
+                    raise errors.DiskNotFound()
+                d.delete_version(bucket, object_name, marker)
+
+            results = meta_mod.parallel_map(mark, disks)
+            errs = [e for _, e in results]
+            err = errors.reduce_quorum_errs(
+                errs, write_quorum, errors.ErasureWriteQuorum(bucket, object_name)
+            )
+            if err:
+                raise err
+            oi = ObjectInfo(
+                bucket=bucket,
+                name=object_name,
+                version_id=marker.version_id,
+                delete_marker=True,
+                mod_time=marker.mod_time,
+            )
+            return oi
+
+        # Physical delete of one version (or the null version).
+        vid = opts.version_id
+        fi = FileInfo(volume=bucket, name=object_name, version_id=vid)
+
+        def rm(d):
+            if d is None:
+                raise errors.DiskNotFound()
+            d.delete_version(bucket, object_name, fi)
+
+        results = meta_mod.parallel_map(rm, disks)
+        errs = [e for _, e in results]
+        not_found = (errors.FileNotFound, errors.FileVersionNotFound)
+        if errs and all(e is not None and isinstance(e, not_found) for e in errs):
+            # Every drive agrees the version was never there: that is a clean
+            # not-found, not a write-quorum failure (the multi-pool delete
+            # sweep relies on this to skip pools that never held the object).
+            if vid:
+                raise errors.VersionNotFound(bucket, object_name)
+            raise errors.ObjectNotFound(bucket, object_name)
+        err = errors.reduce_quorum_errs(
+            errs,
+            write_quorum,
+            errors.ErasureWriteQuorum(bucket, object_name),
+            ignored=not_found,
+        )
+        if err:
+            raise err
+        return ObjectInfo(bucket=bucket, name=object_name, version_id=vid)
+
+    # ------------------------------------------------------------------ heal
+
+    def heal_object(
+        self, bucket: str, object_name: str, version_id: str = "", dry_run: bool = False
+    ) -> HealResultItem:
+        """Reconstruct missing/corrupt shards onto stale drives
+        (cmd/erasure-healing.go:257 healObject equivalent)."""
+        return self._heal_object(bucket, object_name, version_id, dry_run)
+
+    def _heal_object(
+        self, bucket: str, object_name: str, version_id: str = "", dry_run: bool = False
+    ) -> HealResultItem:
+        disks = self._online()
+        metas, errs = meta_mod.read_all_file_info(disks, bucket, object_name, version_id)
+        read_quorum, _ = meta_mod.object_quorum_from_meta(metas, errs, self.parity)
+        fi = meta_mod.find_file_info_in_quorum(metas, read_quorum)
+        k, mth = fi.erasure.data_blocks, fi.erasure.parity_blocks
+
+        result = HealResultItem(
+            bucket=bucket,
+            object=object_name,
+            version_id=fi.version_id,
+            data_blocks=k,
+            parity_blocks=mth,
+        )
+        online = meta_mod.list_online_disks(disks, metas, errs, fi)
+        state = []
+        for d, o in zip(disks, online):
+            if d is None:
+                state.append("offline")
+            elif o is None:
+                state.append("missing")
+            else:
+                state.append("ok")
+        result.before_drive_state = list(state)
+
+        from ..control.tiering import META_TRANSITION_STATUS, STATUS_COMPLETE
+
+        if fi.deleted or fi.metadata.get(META_TRANSITION_STATUS) == STATUS_COMPLETE:
+            # Delete markers and transitioned versions have no local shard
+            # data; heal = copy the metadata record to stale drives.
+            to_heal = [i for i, s in enumerate(state) if s == "missing"]
+            if not dry_run:
+                for i in to_heal:
+                    d = disks[i]
+                    if d is not None:
+                        d.write_metadata(bucket, object_name, fi)
+                        state[i] = "healed"
+            result.after_drive_state = state
+            result.disks_healed = len(to_heal)
+            return result
+
+        by_shard = meta_mod.shuffle_disks_by_index(online, fi.erasure.distribution)
+        metas_by_shard = meta_mod.shuffle_disks_by_index(  # type: ignore[arg-type]
+            [m if o is not None else None for m, o in zip(metas, online)],
+            fi.erasure.distribution,
+        )
+        inline = bool(fi.inline_data) or (
+            fi.size > 0 and fi.size < SMALL_FILE_THRESHOLD and not fi.data_dir
+        )
+        parts = fi.parts or [ObjectPartInfo(1, fi.size, fi.size)]
+        part_chunks = {p.number: _shard_chunk_sizes(p.size, k) for p in parts}
+        # Legacy whole-file-bitrot objects: raw shard files, one checksum per
+        # part per row in each drive's own metadata (cmd/bitrot-whole.go).
+        # Majority vote -- one drive's lost cs list must not flip the layout.
+        whole = _whole_layout(metas)
+
+        # Verified single-part whole-file blobs are kept for the rebuild so
+        # the heal doesn't read every surviving row twice (verify + rebuild).
+        # Multi-part objects skip the cache to bound memory at one part.
+        whole_blobs: dict[tuple[int, int], bytes] = {}
+
+        def _read_raw(j: int, part: ObjectPartInfo) -> bytes:
+            cached = whole_blobs.get((j, part.number))
+            if cached is not None:
+                return cached
+            disk = by_shard[j]
+            if disk is None:
+                raise errors.DiskNotFound()
+            if inline:
+                m = metas_by_shard[j]
+                blob = m.inline_data if m is not None else b""
+                if not blob:
+                    raise errors.FileNotFound()
+                return blob
+            return disk.read_file(
+                bucket, os.path.join(object_name, fi.data_dir, f"part.{part.number}")
+            )
+
+        def read_part_frames(j: int, part: ObjectPartInfo):
+            """(digest, chunk) frames; digest is None for whole-file rows
+            (their integrity is the single per-part checksum, verified in
+            _whole_row_ok, not per chunk)."""
+            blob = _read_raw(j, part)
+            if not whole:
+                return _parse_frames(blob, part_chunks[part.number])
+            frames, pos = [], 0
+            for sz in part_chunks[part.number]:
+                chunk = blob[pos : pos + sz]
+                if len(chunk) != sz:
+                    raise errors.FileCorrupt("short whole-bitrot shard file")
+                frames.append((None, chunk))
+                pos += sz
+            return frames
+
+        def _whole_row_ok(j: int, part: ObjectPartInfo) -> bool:
+            m = metas_by_shard[j]
+            if m is None:
+                return False
+            try:
+                blob = _read_raw(j, part)
+            except (errors.DiskError, errors.FileCorrupt):
+                return False
+            if not _whole_sum_matches(m, part.number, blob):
+                return False
+            # Rows are verified in index order and the rebuild re-reads only
+            # the FIRST k surviving rows, so caching the first k verified
+            # rows covers exactly the reuse set (single-part only: memory is
+            # bounded at k rows ~ the part size).
+            if len(parts) == 1 and len(whole_blobs) < k:
+                whole_blobs[(j, part.number)] = blob
+            return True
+
+        # Which shard rows need rebuilding? (missing drive, bad metadata, or
+        # failed verification of any part chunk.) Verification is batched
+        # ACROSS rows per part and routed through the codec, so the batching
+        # device codec runs one verify_digests step per chunk-length group
+        # instead of a per-shard host loop.
+        bad: set[int] = {j for j in range(k + mth) if by_shard[j] is None}
+        if fi.size > 0 and whole:
+            for part in parts:
+                for j in range(k + mth):
+                    if j not in bad and not _whole_row_ok(j, part):
+                        bad.add(j)
+        elif fi.size > 0 and isinstance(self.codec, codec_mod.HostCodec):
+            # Host codec: verify each row's H||chunk frames per row, as the
+            # GET path does (one batched digest call per row).
+            for part in parts:
+                sizes = part_chunks[part.number]
+                for j in range(k + mth):
+                    if j in bad:
+                        continue
+                    try:
+                        blob = _read_raw(j, part)
+                        parsed = _parse_frames(blob, sizes)
+                        if not all(_verify_frames(self.codec, sizes, parsed)):
+                            bad.add(j)
+                    except (errors.DiskError, errors.FileCorrupt):
+                        bad.add(j)
+        elif fi.size > 0:
+            # Device codec: rows are verified in batched digest calls
+            # (grouped across rows so small objects still form real device
+            # batches) but flushed before the pending chunks exceed ~32 MiB, so
+            # memory stays O(flush window + one row), not
+            # O(whole part x all rows).
+            FLUSH_BYTES = 32 << 20
+
+            for part in parts:
+                pending: list[tuple[int, bytes, bytes]] = []  # (row, digest, chunk)
+                pending_bytes = 0
+
+                def flush() -> None:
+                    nonlocal pending, pending_bytes
+                    by_len: dict[int, list[int]] = {}
+                    for i, (_, _, c) in enumerate(pending):
+                        by_len.setdefault(len(c), []).append(i)
+                    for idxs in by_len.values():
+                        digs = self.codec.digests_batch([pending[i][2] for i in idxs])
+                        for i, got in zip(idxs, digs):
+                            if got != pending[i][1]:
+                                bad.add(pending[i][0])
+                    pending = []
+                    pending_bytes = 0
+
+                for j in range(k + mth):
+                    if j in bad:
+                        continue
+                    try:
+                        for digest, chunk in read_part_frames(j, part):
+                            pending.append((j, digest, chunk))
+                            pending_bytes += len(chunk)
+                    except (errors.DiskError, errors.FileCorrupt):
+                        bad.add(j)
+                        continue
+                    if pending_bytes >= FLUSH_BYTES:
+                        flush()
+                flush()
+
+        oks = [j not in bad for j in range(k + mth)]
+        bad_rows = tuple(j for j, ok in enumerate(oks) if not ok)
+        if not bad_rows:
+            result.after_drive_state = state
+            return result
+        if sum(oks) < k:
+            raise errors.InsufficientReadQuorum(bucket, object_name, "object unhealable")
+        if dry_run:
+            result.after_drive_state = state
+            result.disks_healed = len(bad_rows)
+            return result
+
+        # Rebuild bad rows per part, block by block, from surviving shards.
+        surviving = [j for j, ok in enumerate(oks) if ok][: k]
+        rebuilt_files: dict[int, dict[int, bytes]] = {j: {} for j in bad_rows}  # row -> part -> blob
+        rebuilt_sums: dict[int, list[dict]] = {j: [] for j in bad_rows}  # whole-file only
+        whole_algo_heal = None
+        if whole:
+            # Algorithm for rebuilt checksums: first parsable entry from a
+            # VERIFIED surviving row (the quorum representative's field may
+            # be the one corrupted drive's).
+            for j in surviving:
+                m_ = metas_by_shard[j]
+                for ent in m_.erasure.checksums if m_ is not None else []:
+                    try:
+                        whole_algo_heal = bitrot_mod.BitrotAlgorithm(ent.get("algo", ""))
+                        break
+                    except ValueError:
+                        continue
+                if whole_algo_heal is not None:
+                    break
+            if whole_algo_heal is None:
+                raise errors.FileCorrupt(
+                    "whole-file bitrot object has no parsable checksum algorithm"
+                )
+        if fi.size > 0:
+            for part in parts:
+                frames_by_row = {j: read_part_frames(j, part) for j in surviving}
+                per_row: dict[int, list[tuple[bytes, bytes]]] = {j: [] for j in bad_rows}
+                nblocks = len(part_chunks[part.number])
+                # Rebuild GROUP_BLOCKS windows per codec call: heal runs the
+                # same batched device program as encode (reconstruct + bitrot
+                # digests in one fused step; the reference loops per block,
+                # cmd/erasure-lowlevel-heal.go:31). The short tail block makes
+                # its window irregular and falls back to the host codec.
+                for g0 in range(0, nblocks, GROUP_BLOCKS):
+                    window = range(g0, min(g0 + GROUP_BLOCKS, nblocks))
+                    rows_batch: list[list[bytes | None]] = []
+                    for b in window:
+                        rows: list[bytes | None] = [None] * (k + mth)
+                        for j in surviving:
+                            rows[j] = frames_by_row[j][b][1]
+                        rows_batch.append(rows)
+                    results = self.codec.reconstruct_batch(
+                        rows_batch, k, mth, bad_rows, with_digests=True
+                    )
+                    for chunks, digests in results:
+                        for idx, j in enumerate(bad_rows):
+                            per_row[j].append((digests[idx], chunks[idx]))
+                for j in bad_rows:
+                    if whole:
+                        raw = b"".join(c for _, c in per_row[j])
+                        rebuilt_files[j][part.number] = raw
+                        rebuilt_sums[j].append(
+                            {
+                                "part": part.number,
+                                "algo": whole_algo_heal.value,
+                                "hash": bitrot_mod.digest_of(raw, whole_algo_heal).hex(),
+                            }
+                        )
+                    else:
+                        rebuilt_files[j][part.number] = _frame_shard(
+                            [c for _, c in per_row[j]], [d for d, _ in per_row[j]]
+                        )
+
+        # Write rebuilt shards to the drives that should hold them.
+        healed = 0
+        # pid-scoped like the PUT staging: a heal interrupted by process death
+        # leaves tmp dirs a recovery scan can attribute to the dead pid.
+        upload_id = f"{os.getpid()}.{uuid.uuid4()}"
+        for j in bad_rows:
+            # Find the drive index whose distribution slot is shard j.
+            drive_index = fi.erasure.distribution.index(j + 1)
+            disk = disks[drive_index]
+            if disk is None:
+                continue
+            new_fi = FileInfo(
+                volume=bucket,
+                name=object_name,
+                version_id=fi.version_id,
+                data_dir=fi.data_dir if not inline else "",
+                mod_time=fi.mod_time,
+                size=fi.size,
+                metadata=dict(fi.metadata),
+                parts=[ObjectPartInfo(p.number, p.size, p.actual_size, p.mod_time) for p in fi.parts],
+                erasure=ErasureInfo(
+                    data_blocks=k,
+                    parity_blocks=mth,
+                    block_size=fi.erasure.block_size,
+                    index=j + 1,
+                    distribution=list(fi.erasure.distribution),
+                    checksums=rebuilt_sums[j] if whole else [],
+                ),
+                inline_data=rebuilt_files[j].get(1, b"") if inline else b"",
+            )
+            try:
+                if inline or fi.size == 0:
+                    disk.write_metadata(bucket, object_name, new_fi)
+                else:
+                    tmp_path = f"tmp/{upload_id}/{j}"
+                    for part in parts:
+                        disk.create_file(
+                            META_BUCKET,
+                            f"{tmp_path}/part.{part.number}",
+                            rebuilt_files[j][part.number],
+                        )
+                    disk.rename_data(META_BUCKET, tmp_path, new_fi, bucket, object_name)
+                healed += 1
+                state[drive_index] = "healed"
+            except errors.DiskError:
+                continue
+        result.after_drive_state = state
+        result.disks_healed = healed
+        return result

@@ -17,6 +17,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -40,6 +41,12 @@ KERNEL = Kernel(
     error_symbol="hh256_error_string",
 )
 
+# The plain version runs ~100 small torch operations per 32-byte packet, and
+# each one hands the GIL back and forth: calls from many threads at once (the
+# GET's parallel shard reads) slow each other down by an order of magnitude.
+# One at a time is faster.
+_PLAIN_LOCK = threading.Lock()
+
 
 def hash256_batch(data: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:
     """HighwayHash-256 of equal-length streams: [..., L] u8 -> [..., 32] u8."""
@@ -48,7 +55,8 @@ def hash256_batch(data: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:
     if len(key) != 32:
         raise ValueError("key must be 32 bytes")
     if data.device.type == "cpu":
-        return highwayhash_torch.hash256_batch(data, key)
+        with _PLAIN_LOCK:
+            return highwayhash_torch.hash256_batch(data, key)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     if not data.is_contiguous():
@@ -61,5 +69,7 @@ def hash256_batch(data: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:
         return out
     lanes = [int.from_bytes(key[8 * i : 8 * i + 8], "little") for i in range(4)]
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    KERNEL.launch(data.data_ptr(), out.data_ptr(), n, length, *lanes, stream)
+    # Launch under data's device, whichever device is current.
+    with torch.cuda.device(data.device):
+        KERNEL.launch(data.data_ptr(), out.data_ptr(), n, length, *lanes, stream)
     return out

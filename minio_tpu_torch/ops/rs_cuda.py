@@ -43,7 +43,6 @@ KERNEL = Kernel(
 # ~17 KiB ring, within the 227 KiB a block may use.
 _MAX_TABLE_BYTES = 192 * 1024
 _MAX_ROWS_BYTES = 2**31 - 1  # K*S and R*S: the kernel's offsets within a batch item are 32-bit
-_MAX_BATCH = 65535  # grid.y
 
 _TABLES: dict[tuple, torch.Tensor] = {}
 _TABLES_LOCK = threading.Lock()
@@ -105,8 +104,6 @@ def apply(x: torch.Tensor, coeffs, out: torch.Tensor | None = None) -> torch.Ten
         raise ValueError(f"unsupported device {x.device}")
     if x.stride(2) != 1 or x.stride(1) != s:
         raise ValueError("x rows must be contiguous")
-    if b > _MAX_BATCH:
-        raise ValueError(f"batch {b} exceeds {_MAX_BATCH}")
     if -(-r // 4) * k * 256 * 4 > _MAX_TABLE_BYTES:
         raise ValueError(f"[{r}, {k}] coefficients exceed the kernel's table budget")
     if max(k, r) * s > _MAX_ROWS_BYTES:
