@@ -16,13 +16,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    input and output rows whose base lies 1..15 bytes past a 16-byte
    boundary; the HighwayHash kernel at N = 1, 16 (the GET verify batch), 17
    and 1,024 (the 64-block encode batch) streams at every tail length, and
-   on rows whose base lies 1..15 bytes past a 16-byte boundary. Bytes must
+   on rows whose base lies 1..15 bytes past a 16-byte boundary. Phase 5's
+   shapes too: the RS kernel on the reduced-redundancy 14+2 encode (S =
+   74,899, and its fused layout at B = 16) and on the small-object path's
+   padded batches (S = 1 KiB .. 128 KiB, B up to 64, K = 12 and 14); the
+   hash at L = 74,899 and at the small path's true row lengths. Bytes must
    be equal (tolerance: exact). Times come from CUDA events, each launch on
    rows not in the L2 cache: the RS kernel at [64, 12, 87382] contiguous,
    on the encode view at B = 16 and 64 and a 4-row reconstruct at B = 16,
    each with its bytes bound; the hash at [16, 87382], [64, 87382] (heal's
    verify batch and its rebuilt-row hash, 16 blocks x 4 rows) and
-   [1024, 87382].
+   [1024, 87382], and at [16, 74899] and [256, 2731]; the RS kernel also on
+   the 14+2 encode view at B = 16 and 64 and on two small-path batches.
 3. The slice: one 16-drive 12+4 erasure set under a temp dir, driven through
    ErasureObjects with BatchingDeviceCodec(max_batch=64): PUT one 128 MiB
    object, then 8 concurrent 16 MiB objects; GET each back byte-exact;
@@ -33,6 +38,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    by their (B, R).
    A small object is also PUT through a numpy HostCodec stack and its part
    files must equal the device stack's byte for byte.
+   In this phase, in phase 4's paths and in phase 5's, no work may reach the
+   numpy host codec or a kernel's plain version (the launch tally counts
+   such calls), and the codec's host_fallback_* counters must read 0.
 4. The rest of the erasure set, on the same set and codec, each path with
    the launch counts reset just before it and read just after (each kernel
    must have launched in each):
@@ -54,6 +62,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    delete marker (GET: not found), a physical delete, list_buckets,
    delete_bucket (a non-empty bucket refuses), and transition_object then
    the metadata-only heal of the transitioned version.
+5. Erasure sets and server pools at a deployment's size: 48 drive
+   directories. Pool 0 is 32 drives formatted as 2 sets of 16 (12+4, RRS
+   14+2, SIPMOD+PARITY), built by ErasureSets.from_drives; pool 1 is 16
+   drives, 1 set, attached later by ServerPools.add_pool (SUSPENDED, then
+   ACTIVE) while pool 0 turns DRAINING. Every set shares the phase's codec.
+   2,048 objects from one numpy generator (names
+   tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants and 8 days, sizes
+   log-uniform from 1 KiB to 4 MiB, one in 8 REDUCED_REDUNDANCY), from 16
+   client threads: 1,536 PUT into pool 0; 32 of them, of every size class
+   and both storage classes, PUT again into a numpy HostCodec copy of
+   pool 0 must leave the same part files and inline data; the listing of
+   pool 0 is exact in pages of 1,000 with and without a delimiter and a
+   prefix, its second page served by the metacache, and
+   list_object_versions pages through versioned overwrites and a delete
+   marker with key and version markers; after the attach the
+   other 512 and 64 overwrites of pool-0 keys land in pool 1; every object's
+   xl.meta lies only on its hashed set's drives; a GET of all 2,048 is
+   byte-exact (an overwritten key reads its new bytes); the listing of both
+   pools is exact without a delimiter (the delimiter listing and the
+   version listing are printed, not held: the reference's multi-pool merges
+   can skip keys and end a version listing early); delete_objects removes
+   256 keys
+   from the listing; with the part files and xl.meta of 4 drives of pool
+   0's set 1 removed (2 of them for a 14+2 object), a GET of every object
+   of that set is byte-exact and heal_object rebuilds each, byte-identical;
+   heal_bucket recreates a drive's lost bucket directory. The PUTs, the
+   GET, the degraded GET and the heal are paths of their own (counts reset
+   before, read after; the healthy GET runs no RS); each prints its
+   objects/s and GiB/s, the codec's clocks, the launch tally (hh256 by N
+   and by row-length class, rs_gf_apply by (B, K, R) and by (K, R, S
+   class)) and the device time those launches take at phase 2's times.
+   Both kernels must have launched at K = 14, R = 2 and on small-path
+   batches.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -83,11 +124,22 @@ INT32_ALU_OPS_PER_S = 67e12  # taken as the fp32 non-tensor rate: no published i
 
 K, M, DRIVES = 12, 4, 16
 S_FULL = -(-(1 << 20) // K)  # 87,382: the shard chunk of a 1 MiB block
+K_RRS = 14  # REDUCED_REDUNDANCY on a 16-drive set: 14+2
+S_RRS = -(-(1 << 20) // K_RRS)  # 74,899
+# The small-object path pads the shard axis to a power of two from 1 KiB.
+SMALL_PADDED = tuple(1024 << i for i in range(8))
 MiB = 1 << 20
+
+
+T0 = time.perf_counter()
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def log_phase_end(phase: str) -> None:
+    log(f"{phase} done at {time.perf_counter() - T0:.1f} s since start")
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -166,41 +218,55 @@ def phase_kernels(dev: torch.device) -> dict:
             xv = xbuf[off : off + 2 * K * s].view(2, K, s)
             ov = obuf[o : o + 2 * r * s].view(2, r, s)
             err = max(err, rs_err(xv, coeffs, out=ov))
+    # Reduced redundancy (14+2) encode, and the small-object path's padded
+    # batches: B up to 64 at padded shard lengths of 1 KiB .. 128 KiB.
+    parity_rrs = rs_matrix.parity_matrix(K_RRS, 2)
+    for s in (1, 17, S_RRS):
+        err = max(err, rs_err(rand((4, K_RRS, s)), parity_rrs))
+    shards = rand((16, K_RRS + 2, S_RRS))
+    err = max(err, rs_err(shards[:, :K_RRS], parity_rrs, out=shards[:, K_RRS:]))
+    for s in SMALL_PADDED:
+        err = max(err, rs_err(rand((64 if s <= 16384 else 8, K, s)), parity))
+        err = max(err, rs_err(rand((8, K_RRS, s)), parity_rrs))
     torch.cuda.synchronize()
     if err:
         raise AssertionError(f"rs_gf_apply disagrees with its plain version: max abs err {err}")
     log(f"rs_gf_apply equals its plain version: [64,{K},{S_FULL}] encode and 4-row reconstruct, the fused "
-        f"layout at B in (1, 16, 64), R in 1..4 at S in {rs_lengths}, base offsets 1..15 in and out")
+        f"layout at B in (1, 16, 64), R in 1..4 at S in {rs_lengths}, base offsets 1..15 in and out; "
+        f"{K_RRS}+2 encode at S in (1, 17, {S_RRS}) and its fused layout at B = 16; the small path's "
+        f"padded batches at S in {SMALL_PADDED}")
 
-    def rs_bound(b: int, r: int) -> tuple[float, str]:
-        nbytes = b * (K + r) * S_FULL
-        ops = 2 * b * S_FULL * (K * 8) * (r * 8)  # the bit-matmul's MACs x 2
+    def rs_bound(b: int, r: int, k: int = K, s: int = S_FULL) -> tuple[float, str]:
+        nbytes = b * (k + r) * s
+        ops = 2 * b * s * (k * 8) * (r * 8)  # the bit-matmul's MACs x 2
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
-    def rs_cold_ms(b: int, r: int, layout: str) -> float:
+    def rs_cold_ms(b: int, r: int, layout: str, k: int = K, s: int = S_FULL) -> float:
         # Rotate over copies that together exceed the 50 MB L2, so each
         # launch reads rows that are not in the cache.
-        copies = max(2, -(-64 * MiB // (b * (K + M) * S_FULL)))
-        coeffs = parity if layout != "reconstruct" else recs[r]
+        copies = max(2, -(-64 * MiB // (b * (k + r) * s)))
+        coeffs = recs[r] if layout == "reconstruct" else parity if k == K else parity_rrs
         if layout == "encode view":
-            bufs = [rand((b, K + M, S_FULL)) for _ in range(copies)]
-            calls = [(t[:, :K], t[:, K:]) for t in bufs]
+            bufs = [rand((b, k + r, s)) for _ in range(copies)]
+            calls = [(t[:, :k], t[:, k:]) for t in bufs]
         else:
-            calls = [(rand((b, K, S_FULL)), torch.empty((b, r, S_FULL), dtype=torch.uint8, device=dev))
+            calls = [(rand((b, k, s)), torch.empty((b, r, s), dtype=torch.uint8, device=dev))
                      for _ in range(copies)]
         # Device time from a CUDA graph of the launches: at B = 16 the wrapper's
         # host time per call is not far below the kernel's.
         return graph_ms([lambda xi=xi, oi=oi: rs_cuda.apply(xi, coeffs, out=oi) for xi, oi in calls], 10)
 
     rs_shapes = []
-    for b, r, layout in ((64, M, "contiguous"), (16, M, "encode view"), (64, M, "encode view"),
-                         (16, 4, "reconstruct")):
-        ms = rs_cold_ms(b, r, layout)
-        bound_ms, bound_by = rs_bound(b, r)
-        rs_shapes.append({"shape": [b, K, S_FULL], "rows": r, "layout": layout, "ms": ms,
+    for b, r, layout, k, s in ((64, M, "contiguous", K, S_FULL), (16, M, "encode view", K, S_FULL),
+                               (64, M, "encode view", K, S_FULL), (16, 4, "reconstruct", K, S_FULL),
+                               (16, 2, "encode view", K_RRS, S_RRS), (64, 2, "encode view", K_RRS, S_RRS),
+                               (64, M, "small-path batch", K, 16384), (8, M, "small-path batch", K, 131072)):
+        ms = rs_cold_ms(b, r, layout, k, s)
+        bound_ms, bound_by = rs_bound(b, r, k, s)
+        rs_shapes.append({"shape": [b, k, s], "rows": r, "layout": layout, "ms": ms,
                           "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"kernel rs_gf_apply: [{b},{K},{S_FULL}] -> {r} rows, {layout}: {ms:.4f} ms "
+        log(f"kernel rs_gf_apply: [{b},{k},{s}] -> {r} rows, {layout}: {ms:.4f} ms "
             f"(bound {bound_ms:.4f} ms, {bound_by})")
     rs_ms = rs_shapes[0]["ms"]
     rs_plain_ms = cuda_time_ms(lambda: rs_cuda.plain(x, parity), 2)
@@ -241,11 +307,19 @@ def phase_kernels(dev: torch.device) -> dict:
         views = [buf[off : off + 17 * length].view(17, length) for off in offsets]
         got = torch.cat([highwayhash_cuda.hash256_batch(v) for v in views])
         herr = max(herr, max_abs_err(got, highwayhash_torch.hash256_batch(torch.cat(views))))
+    # The 14+2 full-block row (1 MiB / 14) and the small path's true row
+    # lengths (shards of 1 KiB .. 1 MiB objects over 12 and 14 data rows).
+    small_lengths = (86, 74, 342, 293, 1366, 2731, 10923, 43691, 87381)
+    for n in (1, 16, 64):
+        herr = max(herr, hash_err(rand((n, S_RRS))))
+        for length in small_lengths:
+            herr = max(herr, hash_err(rand((n * 16, length))))
     torch.cuda.synchronize()
     if herr:
         raise AssertionError(f"hh256 disagrees with its plain version: max abs err {herr}")
-    log(f"hh256 equals its plain version at N in (1, 16, 17, 1024) x {len(lengths)} lengths "
-        f"and at base offsets {offsets.start}..{offsets.stop - 1}")
+    log(f"hh256 equals its plain version at N in (1, 16, 17, 1024) x {len(lengths)} lengths, "
+        f"at base offsets {offsets.start}..{offsets.stop - 1}, at L = {S_RRS} (N = 1, 16, 64) and at the "
+        f"small path's lengths {small_lengths} (N = 16, 256, 1024)")
     # [1024, 87382] is 89 MB, more than the 50 MB L2, so each launch reads
     # cold rows; the verify shape rotates over 48 batches (67 MB) for the same.
     hh_ms = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(h), 10)
@@ -259,18 +333,30 @@ def phase_kernels(dev: torch.device) -> dict:
     hh_ms_n64 = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(heal[next(turn)]), 24)
     del verify, heal
 
-    def hh_bound(n: int) -> tuple[float, str]:
-        nbytes = n * S_FULL + n * 32
+    def hh_bound(n: int, length: int = S_FULL) -> tuple[float, str]:
+        nbytes = n * length + n * 32
         # Per 32-byte packet and lane: 3 adds, 2 multiplies, 2 masks, 2
         # shifts, 2 xors, plus ~24 zipper shift/mask/or ops per lane pair:
         # ~60 ops.
-        ops = n * (S_FULL // 32 + 11) * 4 * 60
+        ops = n * (length // 32 + 11) * 4 * 60
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_ALU_OPS_PER_S
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     hh_bound_ms, hh_bound_by = hh_bound(1024)
     hh_bound_ms_n16, _ = hh_bound(16)
     hh_bound_ms_n64, _ = hh_bound(64)
+    # The 14+2 GET verify row batch, and a small-path group (16 blocks of
+    # a 32 KiB object: 256 rows of 2,731 bytes), each over cold copies.
+    hh_shapes = []
+    for n, length in ((16, S_RRS), (256, 2731)):
+        copies = max(2, -(-64 * MiB // (n * length)))
+        rows = rand((copies, n, length))
+        turn = itertools.cycle(range(copies))
+        ms = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(rows[next(turn)]), 2 * copies)
+        bound_ms, bound_by = hh_bound(n, length)
+        hh_shapes.append({"shape": [n, length], "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"kernel hh256: [{n},{length}] {ms:.4f} ms (bound {bound_ms:.6f} ms, {bound_by})")
+        del rows
     log(f"kernel hh256 ok: [1024,{S_FULL}] {hh_ms:.4f} ms (plain {hh_plain_ms:.1f} ms, bound {hh_bound_ms:.4f} ms); "
         f"[16,{S_FULL}] {hh_ms_n16:.4f} ms (plain {hh_plain_ms_n16:.1f} ms, bound {hh_bound_ms_n16:.6f} ms); "
         f"[64,{S_FULL}] {hh_ms_n64:.4f} ms (bound {hh_bound_ms_n64:.6f} ms)")
@@ -288,7 +374,7 @@ def phase_kernels(dev: torch.device) -> dict:
             "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound_ms,
             "bound_by": hh_bound_by, "library_ms": None, "shape": [1024, S_FULL],
             "ms_n16": hh_ms_n16, "plain_ms_n16": hh_plain_ms_n16, "bound_ms_n16": hh_bound_ms_n16,
-            "ms_n64": hh_ms_n64, "bound_ms_n64": hh_bound_ms_n64,
+            "ms_n64": hh_ms_n64, "bound_ms_n64": hh_bound_ms_n64, "shapes": hh_shapes,
         },
     }
 
@@ -329,16 +415,21 @@ def _part_files(drives, key: str) -> list[bytes]:
 
 class Tally:
     """Counts each kernel's launches by shape beside the wrappers' own
-    counts: the hash kernel's by N (its third argument), the RS kernel's by
-    (B, R) (its sixth and eighth). reset() zeroes every count just before a
+    counts: the hash kernel's by (N, L) (its third and fourth arguments),
+    the RS kernel's by (B, K, R, S) (its sixth to ninth). It also counts the
+    calls into the numpy host codec and the kernels' plain versions, which no
+    path may make on the card. reset() zeroes every count just before a
     path; read() reads them just after."""
 
     def __init__(self):
-        from minio_tpu_torch.ops import highwayhash_cuda, rs_cuda
+        from minio_tpu_torch.object.codec import HostCodec
+        from minio_tpu_torch.ops import highwayhash as np_hh
+        from minio_tpu_torch.ops import highwayhash_cuda, highwayhash_torch, rs_cuda, rs_ref
 
         self.kernels = {"rs_gf_apply": rs_cuda.KERNEL, "hh256": highwayhash_cuda.KERNEL}
-        self.hh_by_n: collections.Counter = collections.Counter()
-        self.rs_by_br: collections.Counter = collections.Counter()
+        self.hh_by_nl: collections.Counter = collections.Counter()
+        self.rs_by_bkrs: collections.Counter = collections.Counter()
+        self.host_calls: collections.Counter = collections.Counter()
         self._lock = threading.Lock()
         hh_launch = highwayhash_cuda.KERNEL.launch
         rs_launch = rs_cuda.KERNEL.launch
@@ -346,42 +437,84 @@ class Tally:
         def hh_launch_tallied(*args):
             hh_launch(*args)
             with self._lock:
-                self.hh_by_n[args[2]] += 1
+                self.hh_by_nl[(args[2], args[3])] += 1
 
         def rs_launch_tallied(*args):
             rs_launch(*args)
             with self._lock:
-                self.rs_by_br[(args[5], args[7])] += 1
+                self.rs_by_bkrs[(args[5], args[6], args[7], args[8])] += 1
 
         highwayhash_cuda.KERNEL.launch = hh_launch_tallied
         rs_cuda.KERNEL.launch = rs_launch_tallied
+        host = [(HostCodec, n) for n in ("encode", "reconstruct", "reconstruct_batch", "digests_batch", "_digests")]
+        host += [(np_hh, "hash256"), (np_hh, "hash256_batch"), (rs_ref, "encode"), (rs_ref, "reconstruct"),
+                 (rs_cuda, "plain"), (highwayhash_torch, "hash256_batch")]
+        self._restore = []
+        for owner, name in host:
+            real = getattr(owner, name)
+
+            def counted(*args, _name=f"{owner.__name__}.{name}", _real=real, **kwargs):
+                with self._lock:
+                    self.host_calls[_name] += 1
+                return _real(*args, **kwargs)
+
+            setattr(owner, name, counted)
+            self._restore.append((owner, name, real))
 
     def reset(self) -> None:
         with self._lock:
             for k in self.kernels.values():
                 k.launches = 0
-            self.hh_by_n.clear()
-            self.rs_by_br.clear()
+            self.hh_by_nl.clear()
+            self.rs_by_bkrs.clear()
+            self.host_calls.clear()
 
-    def read(self, path: str) -> dict:
-        """The counts of one path; raises if a kernel did not launch in it."""
+    def read(self, path: str, need: tuple = ("rs_gf_apply", "hh256")) -> dict:
+        """The counts of one path; raises if a kernel in `need` did not
+        launch in it, or if the path called the host codec or a plain
+        version."""
         with self._lock:
+            hh, rs = dict(self.hh_by_nl), dict(self.rs_by_bkrs)
             out = {
                 "launches": {name: k.launches for name, k in self.kernels.items()},
-                "hh256_by_n": dict(sorted(self.hh_by_n.items())),
-                "rs_gf_apply_by_b_r": dict(sorted(self.rs_by_br.items())),
+                "hh256_by_n_l": dict(sorted(hh.items())),
+                "rs_gf_apply_by_b_k_r_s": dict(sorted(rs.items())),
+                "host_calls": dict(self.host_calls),
             }
-        for name, n in out["launches"].items():
-            if n == 0:
+        by_n: collections.Counter = collections.Counter()
+        for (n, _), c in hh.items():
+            by_n[n] += c
+        by_b_r: collections.Counter = collections.Counter()
+        by_b_k_r: collections.Counter = collections.Counter()
+        for (b, k, r, _), c in rs.items():
+            by_b_r[(b, r)] += c
+            by_b_k_r[(b, k, r)] += c
+        out["hh256_by_n"] = dict(sorted(by_n.items()))
+        out["rs_gf_apply_by_b_r"] = dict(sorted(by_b_r.items()))
+        for name in need:
+            if out["launches"][name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path} path")
+        if out["host_calls"]:
+            raise AssertionError(f"the {path} path called the host codec or a plain version: {out['host_calls']}")
         log(f"{path}: launches {json.dumps(out['launches'])}; hh256 by N "
-            f"{json.dumps(out['hh256_by_n'])}; rs_gf_apply by (B, R) "
-            f"{json.dumps({f'B={b},R={r}': c for (b, r), c in out['rs_gf_apply_by_b_r'].items()})}")
+            f"{json.dumps(out['hh256_by_n'])}; rs_gf_apply by (B, K, R) "
+            f"{json.dumps({f'B={b},K={k},R={r}': c for (b, k, r), c in sorted(by_b_k_r.items())})}; "
+            f"host codec and plain-version calls: 0")
         return out
 
     def uninstall(self) -> None:
         for k in self.kernels.values():
             k.__dict__.pop("launch", None)
+        for owner, name, real in self._restore:
+            setattr(owner, name, real)
+
+
+def _no_host_fallback(codec, path: str) -> None:
+    st = codec.stats()
+    fallback = {k: st[k] for k in ("host_fallback_blocks", "host_fallback_recon_blocks",
+                                   "host_fallback_digest_chunks")}
+    if any(fallback.values()):
+        raise AssertionError(f"{path}: work went to the host codec: {fallback}")
 
 
 def phase_slice(dev, smi: str, root: str, codec, tally: Tally, big_mib: int = 128, small_mib: int = 16):
@@ -432,8 +565,7 @@ def phase_slice(dev, smi: str, root: str, codec, tally: Tally, big_mib: int = 12
     st = codec.stats()
     if not (st["batches_run"] > 0 and st["recon_batches_run"] > 0 and st["digests_verified"] > 0):
         raise AssertionError(f"device counters did not move: {st}")
-    if st["host_fallback_blocks"] != 0:
-        raise AssertionError(f"full blocks went to the host codec: {st}")
+    _no_host_fallback(codec, "PUT/GET/degraded GET")
     gib_big, gib_small = big_mib / 1024, 8 * small_mib / 1024
     log(f"slice stats: {json.dumps(st)}")
     log(f"launches during the {big_mib} MiB PUT: rs_gf_apply {put_big_launches[0]}, "
@@ -509,8 +641,7 @@ def phase_heal(smi: str, eo, drives, codec, tally: Tally, payloads: dict, lost: 
               "verify_batches_run", "device_recon_seconds", "device_verify_seconds")}
     if moved["recon_batches_run"] <= 0 or moved["digests_verified"] <= 0:
         raise AssertionError(f"heal: device counters did not move: {moved}")
-    if moved["host_fallback_recon_blocks"] != 0:
-        raise AssertionError(f"heal: windows went to the host codec: {moved}")
+    _no_host_fallback(codec, "heal")
     windows = sum(-(-len(p) // MiB // 16) for p in payloads.values())
     if counts["rs_gf_apply_by_b_r"].get((16, len(LOST)), 0) != windows:
         raise AssertionError(f"heal: expected {windows} reconstructs at (16, 4): {counts}")
@@ -532,6 +663,7 @@ def phase_heal(smi: str, eo, drives, codec, tally: Tally, payloads: dict, lost: 
     tally.reset()
     res = eo.heal_object("bench", "big")
     counts_flip = tally.read("heal of a flipped byte")
+    _no_host_fallback(codec, "heal of a flipped byte")
     if res.disks_healed != 1 or res.after_drive_state[1] != "healed" or _read(path) != good:
         raise AssertionError(f"heal of a flipped byte: {res}")
     log("heal of one flipped byte ok: 1 drive healed, the file restored")
@@ -569,6 +701,7 @@ def phase_multipart(smi: str, root: str, eo, codec, tally: Tally, part_mib: int 
     oi = upload(eo)
     mp_s = time.perf_counter() - t0
     counts = tally.read("multipart")
+    _no_host_fallback(codec, "multipart")
     after = codec.stats()
     log("multipart stats moved: " + json.dumps({k: after[k] - before[k] for k in (
         "batches_run", "blocks_encoded", "blocks_padded", "host_fallback_blocks", "device_encode_seconds")}))
@@ -655,6 +788,460 @@ def phase_whole_file(eo, drives, tally: Tally) -> dict:
     return {"whole_file_put": counts}
 
 
+# -- phase 5: erasure sets and server pools ------------------------------------------------
+
+POOL_DRIVES = (32, 16)  # pool 0: 2 sets of 16; pool 1, attached later: 1 set of 16
+SET_DRIVES = 16
+TENANTS, DAYS = 16, 8
+
+
+def _size_class(n: int) -> str:
+    if n < 4 << 10:
+        return "<4KiB"
+    if n < 128 << 10:
+        return "4-128KiB inline"
+    if n < MiB:
+        return "128KiB-1MiB small path"
+    return ">=1MiB full blocks"
+
+
+class Traffic:
+    """The objects of phase 5, all from one numpy generator: names
+    tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants and 8 days, sizes
+    log-uniform from 1 KiB to 4 MiB, one object in 8 REDUCED_REDUNDANCY.
+    The bytes are one buffer made in bulk; each object is a view of it."""
+
+    def __init__(self, seed: int, n: int, max_size: int = 4 * MiB):
+        rng = np.random.default_rng(seed)
+        tenants = rng.integers(0, TENANTS, n)
+        days = rng.integers(0, DAYS, n)
+        self.names = [f"tenant-{t:02d}/2024-01-{d + 1:02d}/obj-{i:05d}" for i, (t, d) in enumerate(zip(tenants, days))]
+        self.sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(max_size), n)).astype(np.int64)
+        self.rrs = rng.permutation(n) < n // 8
+        offsets = np.concatenate([[0], np.cumsum(self.sizes)])
+        self._buf = memoryview(rng.bytes(int(offsets[-1])))
+        self.data = {name: self._buf[offsets[i]:offsets[i + 1]] for i, name in enumerate(self.names)}
+        self.storage_class = {name: "REDUCED_REDUNDANCY" if r else "" for name, r in zip(self.names, self.rrs)}
+        self.rng = rng
+
+
+def _pool_drives(root: str, n_sets: int, formats=None) -> tuple:
+    from minio_tpu_torch.storage import format as fmt
+    from minio_tpu_torch.storage.local import LocalDrive
+
+    formats = formats or fmt.init_format(n_sets, SET_DRIVES)
+    drives = []
+    for i, f in enumerate(formats):
+        d = os.path.join(root, f"d{i}")
+        os.makedirs(d)
+        f.save(d)
+        drives.append(LocalDrive(d))
+    return drives, formats
+
+
+def _in_threads(fn, items, threads: int) -> list:
+    with cf.ThreadPoolExecutor(threads) as ex:
+        return list(ex.map(fn, items))
+
+
+def _list_all(layer, bucket: str, **kwargs) -> tuple[list[str], list[str], int]:
+    """Page a V1 listing through with next_marker: (keys, prefixes, pages)."""
+    keys, prefixes, marker, pages = [], [], "", 0
+    while True:
+        res = layer.list_objects(bucket, marker=marker, **kwargs)
+        pages += 1
+        keys += [o.name for o in res.objects]
+        prefixes += res.prefixes
+        if not res.is_truncated:
+            return keys, prefixes, pages
+        marker = res.next_marker
+
+
+def _version_pages(layer) -> tuple[list, int]:
+    """Page list_object_versions of bucket "versions" through with key and
+    version markers, 5 entries a page."""
+    seen, km, vm, pages = [], "", "", 0
+    while True:
+        res = layer.list_object_versions("versions", prefix="v/", key_marker=km, version_marker=vm, max_keys=5)
+        pages += 1
+        seen += [(o.name, o.version_id, o.is_latest, o.delete_marker) for o in res.objects]
+        if not res.is_truncated:
+            return seen, pages
+        km, vm = res.next_key_marker, res.next_version_marker
+
+
+def _holders(layer, name: str) -> list[tuple[int, int]]:
+    """(pool, drive) of every drive holding name's xl.meta."""
+    return [
+        (p, i)
+        for p, sets in enumerate(layer.pools)
+        for i, d in enumerate(sets.disks)
+        if os.path.exists(os.path.join(d.root, "bench", name, "xl.meta"))
+    ]
+
+
+def _object_files(drive, name: str) -> dict:
+    """Every file of an unversioned object's directory on one drive, by
+    file name: xl.meta, and part.N under its data directory (whose name is
+    a random uuid per PUT)."""
+    top = os.path.join(drive.root, "bench", name)
+    out = {}
+    for dirpath, _, files in os.walk(top):
+        for f in files:
+            out[f] = _read(os.path.join(dirpath, f))
+    return out
+
+
+def _device_ms(counts: dict, kernels: dict) -> float:
+    """A path's device time, estimated from its launches: each at phase 2's
+    time for its shape. The hash by row length, interpolated between the
+    lengths phase 2 timed (the kernel's time is flat in N to 2,048
+    streams), shorter rows
+    at the shortest one's time; the RS kernel at the [64, 12+4, 87382]
+    encode's time scaled by the bytes it moves, never under the small-path
+    batch's time."""
+    hh = kernels["hh256"]
+    points = sorted([(2731, hh["shapes"][1]["ms"]), (S_RRS, hh["shapes"][0]["ms"]), (S_FULL, hh["ms_n16"])])
+    ms = 0.0
+    for (_, length), c in counts["hh256_by_n_l"].items():
+        for (l0, t0), (l1, t1) in zip(points, points[1:]):
+            if length <= l1:
+                t = t0 if length <= l0 else t0 + (t1 - t0) * (length - l0) / (l1 - l0)
+                break
+        else:
+            t = points[-1][1] * length / points[-1][0]
+        ms += c * t
+    rs = kernels["rs_gf_apply"]
+    full_bytes = 64 * (K + M) * S_FULL
+    floor = min(sh["ms"] for sh in rs["shapes"] if sh["layout"] == "small-path batch")
+    for (b, k, r, s_len), c in counts["rs_gf_apply_by_b_k_r_s"].items():
+        ms += c * max(floor, rs["ms"] * b * (k + r) * s_len / full_bytes)
+    return ms
+
+
+def _shape_summary(counts: dict) -> dict:
+    """Launches by shape class: hh256 by row length (and N), rs_gf_apply
+    by (K, R) and whether S is a small-path padded length (a power of two)."""
+    hh: collections.Counter = collections.Counter()
+    for (_, length), c in counts["hh256_by_n_l"].items():
+        if length in (S_FULL, S_RRS):
+            hh[f"L={length}"] += c
+        else:
+            hh["L<=4096" if length <= 4096 else "L 4097-87381"] += c
+    rs: collections.Counter = collections.Counter()
+    for (_, k, r, s_len), c in counts["rs_gf_apply_by_b_k_r_s"].items():
+        if s_len in SMALL_PADDED:
+            shape = f"padded S={s_len}"
+        else:
+            shape = f"S={s_len}" if s_len in (S_FULL, S_RRS) else "S other"
+        rs[f"K={k},R={r},{shape}"] += c
+    return {"hh256": dict(sorted(hh.items())), "rs_gf_apply": dict(sorted(rs.items()))}
+
+
+def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 2048, threads: int = 16,
+                max_size: int = 4 * MiB, seed: int = 5) -> dict:
+    """A 48-drive deployment through ServerPools: see the module docstring."""
+    from minio_tpu_torch import ErasureSets, ServerPools
+    from minio_tpu_torch.object import pools as pools_mod
+    from minio_tpu_torch.object.codec import HostCodec
+    from minio_tpu_torch.object.types import DeleteObjectOptions, PutObjectOptions
+
+    t_gen = time.perf_counter()
+    traffic = Traffic(seed, n_objects, max_size)
+    total_bytes = int(traffic.sizes.sum())
+    log(f"pools traffic: {n_objects} objects, {total_bytes / MiB:.1f} MiB, made in "
+        f"{time.perf_counter() - t_gen:.2f} s; by size class "
+        f"{json.dumps(collections.Counter(_size_class(int(n)) for n in traffic.sizes))}, "
+        f"{int(traffic.rrs.sum())} REDUCED_REDUNDANCY")
+    drives0, formats0 = _pool_drives(os.path.join(root, "pool0"), POOL_DRIVES[0] // SET_DRIVES)
+    layer = ServerPools([ErasureSets.from_drives(drives0, formats0[0], codec=codec, pool_index=0)])
+    layer.make_bucket("bench")
+    sets0 = layer.pools[0]
+    if [len(s.disks) for s in sets0.sets] != [16, 16] or sets0.sets[0].parity != 4 or sets0.sets[0].rrs_parity != 2:
+        raise AssertionError("pool 0 is not 2 sets of 12+4 with 14+2 RRS")
+    n0 = n_objects * 3 // 4
+    first, rest = traffic.names[:n0], traffic.names[n0:]
+    paths = {}
+
+    def put(name, data=None):
+        return layer.put_object("bench", name, traffic.data[name] if data is None else data,
+                                PutObjectOptions(storage_class=traffic.storage_class[name]))
+
+    def rate(label: str, names: list, seconds: float, nbytes: int) -> str:
+        return (f"{label}: {len(names)} objects in {seconds:.3f} s, {len(names) / seconds:.1f} objects/s, "
+                f"{nbytes / 2**30 / seconds:.4f} GiB/s [{smi}]")
+
+    clock_keys = ("device_encode_seconds", "batches_run", "small_batches_run", "small_blocks_encoded",
+                  "device_verify_seconds", "verify_batches_run", "digests_verified",
+                  "device_recon_seconds", "recon_batches_run")
+
+    def clock(label: str, before: dict, wall_s: float) -> None:
+        """The codec's own clocks over a path (summed over threads: device
+        work with its host staging and copies) beside its wall time."""
+        after = codec.stats()
+        log(f"{label} codec clocks over {wall_s:.3f} s of wall time: "
+            + json.dumps({k: round(after[k] - before[k], 4) for k in clock_keys}))
+
+    # 1. PUT into pool 0.
+    before = codec.stats()
+    tally.reset()
+    t0 = time.perf_counter()
+    _in_threads(put, first, threads)
+    put0_s = time.perf_counter() - t0
+    paths["pools_put_pool0"] = tally.read("pools: PUT into pool 0")
+    _no_host_fallback(codec, "pools: PUT into pool 0")
+    bytes0 = sum(len(traffic.data[n]) for n in first)
+    log(rate(f"pools PUT into pool 0 ({threads} threads)", first, put0_s, bytes0))
+    clock("pools PUT into pool 0", before, put0_s)
+
+    # Bytes against the host codec: a sample of 32 objects of every size
+    # class and both storage classes, PUT again into a numpy HostCodec copy
+    # of pool 0 (the same formats), must leave the same part files and
+    # inline data on every drive.
+    by_class = collections.defaultdict(list)
+    for name in first:
+        by_class[(_size_class(len(traffic.data[name])), traffic.storage_class[name])].append(name)
+    sample = []
+    for key in sorted(by_class):
+        names = sorted(by_class[key], key=lambda n: len(traffic.data[n]))
+        sample += names[: max(1, 32 // len(by_class))]
+    sample = sample[:32]
+    host_drives, _ = _pool_drives(os.path.join(root, "host-pool0"), 2, formats0)
+    host_sets = ErasureSets.from_drives(host_drives, formats0[0], codec=HostCodec(), pool_index=0)
+    host_sets.make_bucket("bench")
+    for name in sample:
+        host_sets.put_object("bench", name, traffic.data[name],
+                             PutObjectOptions(storage_class=traffic.storage_class[name]))
+        for i, (d, h) in enumerate(zip(drives0, host_drives)):
+            got, want = _object_files(d, name), _object_files(h, name)
+            if {k for k in got if k != "xl.meta"} != {k for k in want if k != "xl.meta"}:
+                raise AssertionError(f"reference {name}: drive {i} holds other files than the host codec's")
+            for k in got:
+                if k != "xl.meta" and got[k] != want[k]:
+                    raise AssertionError(f"reference {name}: drive {i} {k} differs from the host codec's")
+            if got and d.read_version("bench", name).inline_data != h.read_version("bench", name).inline_data:
+                raise AssertionError(f"reference {name}: drive {i} inline data differs from the host codec's")
+    shutil.rmtree(os.path.join(root, "host-pool0"))
+    covered = collections.Counter(
+        f"{_size_class(len(traffic.data[n]))}/{traffic.storage_class[n] or 'STANDARD'}" for n in sample
+    )
+    log(f"reference check ok: {len(sample)} objects ({json.dumps(dict(sorted(covered.items())))}): "
+        f"byte-identical part files and inline data against the numpy host codec")
+
+    # 2. Listing of one pool: exact, in pages of 1,000, with and without a
+    # delimiter and a prefix; the second page comes from the metacache.
+    want0 = sorted(first)
+    walks, hits = sets0.metacache.walks, sets0.metacache.hits
+    t0 = time.perf_counter()
+    keys, prefixes, pages = _list_all(layer, "bench", max_keys=1000)
+    list_s = time.perf_counter() - t0
+    if keys != want0 or prefixes:
+        raise AssertionError(f"listing of pool 0: {len(keys)} keys, want {len(want0)}")
+    if sets0.metacache.walks - walks != 1 or sets0.metacache.hits - hits != pages - 1:
+        raise AssertionError(f"metacache: {sets0.metacache.walks - walks} walks and "
+                             f"{sets0.metacache.hits - hits} hits over {pages} pages")
+    t0 = time.perf_counter()
+    keys_warm, _, pages_warm = _list_all(layer, "bench", max_keys=1000)
+    list_warm_s = time.perf_counter() - t0
+    if keys_warm != want0:
+        raise AssertionError("listing of pool 0 from the metacache differs")
+    keys, prefixes, _ = _list_all(layer, "bench", delimiter="/", max_keys=1000)
+    if keys or prefixes != sorted({n.split("/")[0] + "/" for n in first}):
+        raise AssertionError(f"delimiter listing of pool 0: {keys[:3]}, {prefixes}")
+    tenant = first[0].split("/")[0] + "/"
+    keys, prefixes, _ = _list_all(layer, "bench", prefix=tenant, delimiter="/", max_keys=1000)
+    if keys or prefixes != sorted({n[: n.rindex("/") + 1] for n in first if n.startswith(tenant)}):
+        raise AssertionError(f"prefix+delimiter listing of pool 0: {prefixes}")
+    day = first[0][: first[0].rindex("/") + 1]
+    keys, prefixes, _ = _list_all(layer, "bench", prefix=day, max_keys=7)
+    if keys != sorted(n for n in first if n.startswith(day)) or prefixes:
+        raise AssertionError(f"prefix listing of pool 0 in pages of 7: {len(keys)} keys")
+    log(f"listing of pool 0 exact ({len(want0)} keys; delimiter, prefix and prefix+delimiter too): "
+        f"{pages} pages in {list_s:.3f} s ({pages / list_s:.2f} pages/s, 1 walk, then metacache hits), "
+        f"again from the metacache {pages_warm} pages in {list_warm_s:.4f} s "
+        f"({pages_warm / list_warm_s:.1f} pages/s) [{smi}]")
+
+    # list_object_versions over versioned overwrites and a delete marker,
+    # paged with key and version markers (one pool: the reference's
+    # two-pool merge drops the truncation of a full page).
+    layer.make_bucket("versions")
+    for v in range(3):
+        for i in range(8):
+            layer.put_object("versions", f"v/obj-{i}", traffic.rng.bytes(1000 + 997 * i),
+                             PutObjectOptions(versioned=True))
+    layer.delete_object("versions", "v/obj-3", DeleteObjectOptions(versioned=True))
+    seen, vpages = _version_pages(layer)
+    if len(seen) != 25 or len(set(seen)) != 25 or [s[0] for s in seen] != sorted(s[0] for s in seen):
+        raise AssertionError(f"list_object_versions: {len(seen)} entries over {vpages} pages")
+    if [(s[0], s[3]) for s in seen if s[2]] != [(f"v/obj-{i}", i == 3) for i in range(8)]:
+        raise AssertionError("list_object_versions: latest flags or the delete marker are wrong")
+    log(f"list_object_versions ok: 25 versions (8 keys x 3, 1 delete marker) in {vpages} pages of 5")
+
+    # 3. Attach pool 1 (SUSPENDED, then ACTIVE) and drain pool 0: the other
+    # objects and 64 overwrites of pool-0 keys land in pool 1.
+    drives1, formats1 = _pool_drives(os.path.join(root, "pool1"), POOL_DRIVES[1] // SET_DRIVES)
+    idx = layer.add_pool(ErasureSets.from_drives(drives1, formats1[0], codec=codec, pool_index=1))
+    if layer.statuses[idx] != pools_mod.POOL_SUSPENDED:
+        raise AssertionError("add_pool: pool 1 is not SUSPENDED")
+    for bucket in ("bench", "versions"):
+        layer.pools[idx].make_bucket(bucket)
+    layer.set_pool_status(idx, pools_mod.POOL_ACTIVE)
+    layer.set_pool_status(0, pools_mod.POOL_DRAINING)
+    over = sorted(traffic.rng.choice(len(first), size=min(64, len(first) // 8), replace=False))
+    overwritten = {first[i]: traffic.rng.bytes(len(traffic.data[first[i]])) for i in over}
+    before = codec.stats()
+    tally.reset()
+    t0 = time.perf_counter()
+    _in_threads(put, rest, threads)
+    _in_threads(lambda name: put(name, overwritten[name]), list(overwritten), threads)
+    put1_s = time.perf_counter() - t0
+    paths["pools_put_pool1"] = tally.read("pools: PUT into pool 1 and overwrites")
+    _no_host_fallback(codec, "pools: PUT into pool 1 and overwrites")
+    bytes1 = sum(len(traffic.data[n]) for n in rest) + sum(len(v) for v in overwritten.values())
+    log(rate(f"pools PUT into pool 1 + {len(overwritten)} overwrites ({threads} threads)", rest + list(overwritten), put1_s, bytes1))
+    clock("pools PUT into pool 1", before, put1_s)
+    current = {name: traffic.data[name] for name in traffic.names}
+    current.update(overwritten)
+
+    # Placement: every object's xl.meta only on the drives of its hashed set.
+    in_pool0, in_pool1 = set(first), set(rest) | set(overwritten)
+    for name in traffic.names:
+        held = _holders(layer, name)
+        want = []
+        if name in in_pool0:
+            s = sets0.get_set_index(name)
+            want += [(0, s * SET_DRIVES + i) for i in range(SET_DRIVES)]
+        if name in in_pool1:
+            want += [(1, i) for i in range(SET_DRIVES)]
+        if held != want:
+            raise AssertionError(f"placement of {name}: {held[:4]}..., want {want[:4]}...")
+    per_set = collections.Counter(sets0.get_set_index(n) for n in first)
+    log(f"placement ok: pool 0 sets hold {dict(sorted(per_set.items()))} objects, pool 1 holds "
+        f"{len(rest)} new + {len(overwritten)} overwrites, each only on its hashed set's 16 drives")
+
+    # 4. GET all, byte-exact; an overwritten key reads its new bytes.
+    before = codec.stats()
+    tally.reset()
+    t0 = time.perf_counter()
+    got = _in_threads(lambda name: layer.get_object("bench", name)[1] == current[name], traffic.names, threads)
+    get_s = time.perf_counter() - t0
+    paths["pools_get"] = tally.read("pools: GET", need=("hh256",))
+    _no_host_fallback(codec, "pools: GET")
+    if not all(got):
+        raise AssertionError(f"pools GET: {got.count(False)} objects differ")
+    log(rate(f"pools GET, byte-exact ({threads} threads)", traffic.names, get_s, sum(len(v) for v in current.values())))
+    clock("pools GET", before, get_s)
+
+    # 5. Listing across both pools: exact without a delimiter; the
+    # delimiter listing is printed against what is expected, since the
+    # reference's multi-pool delimiter merge can skip keys.
+    want_all = sorted(traffic.names)
+    t0 = time.perf_counter()
+    keys, _, pages = _list_all(layer, "bench", max_keys=1000)
+    list2_s = time.perf_counter() - t0
+    if keys != want_all:
+        raise AssertionError(f"two-pool listing: {len(keys)} keys, want {len(want_all)}")
+    dkeys, prefixes, dpages = _list_all(layer, "bench", delimiter="/", max_keys=1000)
+    want_prefixes = sorted({n.split("/")[0] + "/" for n in traffic.names})
+    log(f"two-pool listing exact: {len(keys)} keys in {pages} pages, {list2_s:.3f} s ({pages / list2_s:.2f} pages/s) "
+        f"[{smi}]; delimiter listing (not held, see ROADMAP): {len(dkeys)} keys and {len(prefixes)} prefixes "
+        f"in {dpages} pages, expected 0 keys and {len(want_prefixes)} prefixes, "
+        f"{len(set(want_prefixes) - set(prefixes))} missing")
+
+    seen, vpages = _version_pages(layer)
+    log(f"two-pool list_object_versions (not held, see ROADMAP): {len(seen)} of 25 versions in {vpages} pages of 5")
+
+    # 6. Bulk delete of 256 keys (some overwritten: both copies go).
+    victims = sorted(str(n) for n in traffic.rng.choice(traffic.names, size=min(256, len(traffic.names) // 4),
+                                                         replace=False))
+    victims_set = set(victims)
+    res = layer.delete_objects("bench", [(n, "") for n in victims])
+    if any(e is not None for _, e in res):
+        raise AssertionError(f"delete_objects: {[e for _, e in res if e is not None][:3]}")
+    keys, _, _ = _list_all(layer, "bench", max_keys=1000)
+    if keys != sorted(set(traffic.names) - set(victims)):
+        raise AssertionError(f"listing after delete_objects: {len(keys)} keys")
+    live = [n for n in traffic.names if n not in victims_set]
+    log(f"delete_objects ok: {len(victims)} keys gone from the listing, {len(keys)} left")
+
+    # 7. Degraded GET and heal: the part files and xl.meta of 4 drives of
+    # pool 0's set 1 are removed (2 of them for a REDUCED_REDUNDANCY
+    # object: 14+2 survives 2 losses, not 4).
+    lost_drives = (1, 6, 11, 12)
+    set1 = sets0.sets[1].disks
+    targets = [n for n in first if sets0.get_set_index(n) == 1 and n not in victims_set and n not in overwritten]
+    removed = {}
+    for name in targets:
+        lost = lost_drives[:2] if traffic.storage_class[name] else lost_drives
+        for i in lost:
+            fi = set1[i].read_version("bench", name)
+            removed[(name, i)] = (_object_files(set1[i], name), _erasure_fields(fi), fi.inline_data)
+            shutil.rmtree(os.path.join(set1[i].root, "bench", name))
+    before = codec.stats()
+    tally.reset()
+    t0 = time.perf_counter()
+    got = _in_threads(lambda name: layer.get_object("bench", name)[1] == current[name], targets, threads)
+    dget_s = time.perf_counter() - t0
+    paths["pools_degraded_get"] = tally.read("pools: degraded GET")
+    _no_host_fallback(codec, "pools: degraded GET")
+    if not all(got):
+        raise AssertionError(f"pools degraded GET: {got.count(False)} objects differ")
+    log(rate(f"pools degraded GET of pool 0's set 1 (4 drives lost; 2 for RRS), byte-exact ({threads} threads)",
+             targets, dget_s, sum(len(current[n]) for n in targets)))
+    clock("pools degraded GET", before, dget_s)
+    before = codec.stats()
+    tally.reset()
+    t0 = time.perf_counter()
+    results = _in_threads(lambda name: layer.heal_object("bench", name), targets, threads)
+    heal_s = time.perf_counter() - t0
+    paths["pools_heal"] = tally.read("pools: heal")
+    _no_host_fallback(codec, "pools: heal")
+    clock("pools heal", before, heal_s)
+    for name, res in zip(targets, results):
+        lost = lost_drives[:2] if traffic.storage_class[name] else lost_drives
+        if res.disks_healed != len(lost):
+            raise AssertionError(f"heal {name}: {res}")
+        for i in lost:
+            files, fields, inline = removed[(name, i)]
+            if _object_files(set1[i], name).keys() != files.keys():
+                raise AssertionError(f"heal {name}: drive {i} holds other files")
+            for k, v in _object_files(set1[i], name).items():
+                if k != "xl.meta" and v != files[k]:
+                    raise AssertionError(f"heal {name}: drive {i} {k} differs from the removed file")
+            fi = set1[i].read_version("bench", name)
+            if _erasure_fields(fi) != fields or fi.inline_data != inline:
+                raise AssertionError(f"heal {name}: drive {i} xl.meta erasure fields or inline data differ")
+    log(rate(f"pools heal of pool 0's set 1, byte-identical ({threads} threads)", targets, heal_s,
+             sum(len(current[n]) for n in targets)))
+
+    # 8. heal_bucket: one drive of pool 1 loses the bucket's directory.
+    shutil.rmtree(os.path.join(drives1[5].root, "bench"))
+    layer.heal_bucket("bench")
+    if not os.path.isdir(os.path.join(drives1[5].root, "bench")):
+        raise AssertionError("heal_bucket: the bucket directory was not recreated")
+    some = [n for n in live if n in rest][:16]
+    if not all(layer.get_object("bench", n)[1] == current[n] for n in some):
+        raise AssertionError("GET after heal_bucket: bytes differ")
+    log(f"heal_bucket ok: the bucket directory is back, {len(some)} pool-1 objects read byte-exact")
+
+    walls = {"pools_put_pool0": put0_s, "pools_put_pool1": put1_s, "pools_get": get_s,
+             "pools_degraded_get": dget_s, "pools_heal": heal_s}
+    for path, counts in paths.items():
+        summary = _shape_summary(counts)
+        dev_ms = _device_ms(counts, kernels)
+        log(f"{path}: launches by shape class {json.dumps(summary)}; device time estimated from them "
+            f"{dev_ms / 1e3:.3f} s of {walls[path]:.3f} s wall ({100 * dev_ms / 1e3 / walls[path]:.2f}%)")
+    rs_shapes = {(k, r, s_len) for counts in paths.values() for (_, k, r, s_len) in counts["rs_gf_apply_by_b_k_r_s"]}
+    if (K_RRS, 2, S_RRS) not in rs_shapes:
+        raise AssertionError("phase 5 launched no RS encode at K = 14, R = 2")
+    if not any(s_len in SMALL_PADDED for (_, _, s_len) in rs_shapes):
+        raise AssertionError("phase 5 launched no small-path RS batch")
+    hh_lens = {length for counts in paths.values() for (_, length) in counts["hh256_by_n_l"]}
+    if S_RRS not in hh_lens:
+        raise AssertionError("phase 5 launched no hh256 at 74,899 bytes (1 MiB / 14)")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -664,6 +1251,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_gpu_and_build()
     kernels = phase_kernels(dev)
+    log_phase_end("phases 1-2")
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     codec = BatchingDeviceCodec(max_batch=64, device=dev)
     tally = Tally()
@@ -674,6 +1262,10 @@ def main() -> int:
         paths.update(phase_multipart(smi, root, eo, codec, tally))
         phase_object_ops(eo, drives)
         paths.update(phase_whole_file(eo, drives, tally))
+        log_phase_end("phases 3-4")
+        shutil.rmtree(os.path.join(root, "gpu"), ignore_errors=True)
+        paths.update(phase_pools(smi, root, codec, tally, kernels))
+        log_phase_end("phase 5")
     finally:
         tally.uninstall()
         codec.close()
@@ -681,6 +1273,10 @@ def main() -> int:
     for name, rec in kernels.items():
         rec["launches"] = main_counts["launches"][name]
         rec["launches_by_path"] = {path: c["launches"][name] for path, c in paths.items()}
+    for path in (p for p in paths if p.startswith("pools")):
+        summary = _shape_summary(paths[path])
+        for name in kernels:
+            kernels[name][f"launches_by_class_{path}"] = summary[name]
     for path in ("put_get_degraded_get", "heal", "multipart"):
         suffix = "" if path == "put_get_degraded_get" else f"_{path}"
         kernels["hh256"][f"launches_by_n{suffix}"] = {str(n): c for n, c in paths[path]["hh256_by_n"].items()}

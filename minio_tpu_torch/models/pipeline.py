@@ -107,6 +107,33 @@ class ErasurePipeline:
         """
         return rs_cuda.apply(self._to_device(data_shards), self._parity)
 
+    def encode_padded(self, data_shards, shard_lens: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """[B, K, S_pad] data shards, block i filling its first shard_lens[i]
+        bytes of each row -> ([B, K+M, S_pad] shards, [len(shard_lens), K+M,
+        32] digests).
+
+        The small-object path pads the shard-BYTE axis; GF(2^8) math is per
+        byte position, so each block's parity prefix is exact whatever the
+        padding holds. The digests are taken at each block's true length:
+        the rows of the blocks that share a length are gathered into one
+        contiguous [n * (K+M), s] tensor and hashed in one launch. Blocks
+        past len(shard_lens) are batch padding and are not hashed."""
+        x = self._to_device(data_shards)
+        b, k, s_pad = x.shape
+        t = k + self.geom.parity
+        shards = torch.empty((b, t, s_pad), dtype=torch.uint8, device=x.device)
+        shards[:, :k] = x
+        rs_cuda.apply(shards[:, :k], self._parity, out=shards[:, k:])
+        digests = torch.empty((len(shard_lens), t, 32), dtype=torch.uint8, device=x.device)
+        by_len: dict[int, list[int]] = {}
+        for i, s in enumerate(shard_lens):
+            by_len.setdefault(s, []).append(i)
+        for s, idx in by_len.items():
+            ii = torch.tensor(idx, device=x.device)
+            rows = shards[ii, :, :s].reshape(len(idx) * t, s).contiguous()
+            digests[ii] = highwayhash_cuda.hash256_batch(rows).reshape(len(idx), t, 32)
+        return shards, digests
+
     # -- decode ------------------------------------------------------------
 
     def reconstruct_coeffs(self, present: tuple[bool, ...], want: tuple[int, ...]) -> np.ndarray:

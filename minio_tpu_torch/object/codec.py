@@ -4,9 +4,9 @@ The object layer hands 1 MiB blocks to a BlockCodec and gets back shard bytes
 plus bitrot digests. Implementations:
 
   * HostCodec  -- numpy GF tables + numpy HighwayHash on the host.
-  * DeviceCodec -- single-shot encode on the GPU through the pipeline
-    (models/pipeline.py); right for large objects where one call carries
-    many blocks.
+  * DeviceCodec -- single-shot encode, reconstruct and hash on the GPU
+    through the pipeline (models/pipeline.py); right for large objects
+    where one call carries many blocks.
   * The cross-upload batching scheduler (parallel/batching.py) aggregates
     blocks from concurrent requests into one device program.
 
@@ -20,6 +20,7 @@ import abc
 import threading
 
 import numpy as np
+import torch
 
 from ..ops import highwayhash as hh
 from ..ops import rs_matrix, rs_ref
@@ -69,8 +70,8 @@ class BlockCodec(abc.ABC):
     def digests_batch(self, chunks: list) -> list[bytes]:
         """Bitrot digests of many shard chunks (GET frame verification).
 
-        Host codecs use the vectorized numpy hash; the batching device codec
-        routes uniform batches through the device verify_digests step."""
+        Host codecs use the vectorized numpy hash; the device codecs hash on
+        their device, one launch per distinct chunk length."""
         from ..ops import bitrot
 
         return bitrot.digests_of_batch(chunks)
@@ -216,28 +217,59 @@ def run_device_reconstruct(
     ]
 
 
-def uniform_recon_plan(
-    rows_batch: list[list[bytes | None]], k: int
-) -> tuple[tuple[bool, ...], list[int], int] | None:
-    """Device-eligibility check for a batched reconstruct.
+def reconstruct_groups(
+    pipe,
+    rows_batch: list[list[bytes | None]],
+    k: int,
+    want: tuple[int, ...],
+    with_digests: bool,
+) -> tuple[list[tuple[list[bytes], list[bytes] | None]], int]:
+    """Rebuild `want` rows for blocks of any loss pattern and chunk length.
 
-    Returns (present mask, first-K surviving row indices, chunk size) when
-    every block in the batch lost the same shards and all surviving chunks
-    share one length -- the shape a single [B, K, S] device program needs.
-    None means the batch is irregular (mixed tails/patterns): host path.
-    """
-    present = tuple(r is not None for r in rows_batch[0])
-    if sum(present) < k:
-        return None
-    sizes: set[int] = set()
-    for rows in rows_batch:
-        if tuple(r is not None for r in rows) != present:
-            return None
-        sizes.update(len(r) for r in rows if r is not None)
-    if len(sizes) != 1:
-        return None
-    surv = [i for i, p in enumerate(present) if p][:k]
-    return present, surv, sizes.pop()
+    The blocks are split into groups of one present-mask and one chunk
+    length (a window's full blocks, then its short tail) and each group
+    runs as one device program (run_device_reconstruct). Returns the
+    results in the caller's order, and the number of groups run."""
+    groups: dict[tuple[tuple[bool, ...], int], list[int]] = {}
+    for i, rows in enumerate(rows_batch):
+        present = tuple(r is not None for r in rows)
+        if sum(present) < k:
+            raise ValueError("not enough shards to reconstruct")
+        sizes = {len(r) for r in rows if r is not None}
+        if len(sizes) != 1:
+            raise ValueError("surviving shard chunks differ in length")
+        groups.setdefault((present, sizes.pop()), []).append(i)
+    if not want:
+        return [([], [] if with_digests else None) for _ in rows_batch], 0
+    out: list = [None] * len(rows_batch)
+    for (present, s), idx in groups.items():
+        surv = [j for j, p in enumerate(present) if p][:k]
+        res = run_device_reconstruct(pipe, [rows_batch[i] for i in idx], k, want, surv, s, with_digests)
+        for i, r in zip(idx, res):
+            out[i] = r
+    return out, len(groups)
+
+
+def digests_by_length(chunks: list, hash_rows) -> list[bytes]:
+    """Digests of chunks in the caller's order: one hash_rows(rows, length)
+    call (a [n, length] device hash) per distinct chunk length."""
+    by_len: dict[int, list[int]] = {}
+    for i, c in enumerate(chunks):
+        by_len.setdefault(len(c), []).append(i)
+    out: list = [None] * len(chunks)
+    for length, idx in by_len.items():
+        for i, d in zip(idx, hash_rows([chunks[i] for i in idx], length)):
+            out[i] = d
+    return out
+
+
+def stack_rows(rows: list, length: int, out: np.ndarray | None = None) -> np.ndarray:
+    """Equal-length byte rows -> one [n, length] u8 array (into `out` when
+    given, e.g. a pinned staging buffer)."""
+    arr = np.empty((len(rows), length), dtype=np.uint8) if out is None else out
+    for r, c in enumerate(rows):
+        arr[r] = np.frombuffer(c, dtype=np.uint8)
+    return arr
 
 
 class DeviceCodec(BlockCodec):
@@ -247,12 +279,12 @@ class DeviceCodec(BlockCodec):
     a single [B, K, S] tensor, so a large PutObject already amortizes
     transfer/launch across its own blocks. Cross-request amortization is the
     batching scheduler's job (parallel/batching.py). ``device`` is "cuda"
-    unless the caller asks for "cpu".
+    unless the caller asks for "cpu". Every block, reconstruct and digest
+    runs on the pipeline's device.
     """
 
     def __init__(self, device: str = "cuda"):
         self.device = device
-        self._host = HostCodec()
         self._pipelines: dict[tuple[int, int], object] = {}
 
     def _pipe(self, k: int, m: int):
@@ -267,39 +299,33 @@ class DeviceCodec(BlockCodec):
         if not blocks:
             return []
         sizes = [rs_matrix.shard_size(len(b), k) for b in blocks]
-        s_max = max(sizes)
-        batch = np.zeros((len(blocks), k, s_max), dtype=np.uint8)
+        batch = np.zeros((len(blocks), k, max(sizes)), dtype=np.uint8)
         for i, block in enumerate(blocks):
             batch[i, :, : sizes[i]] = _split_block(block, k)
-        parity = self._pipe(k, m).encode_parity(batch).cpu().numpy()  # [B, M, S]
-        out = []
-        for i in range(len(blocks)):
-            s = sizes[i]
-            shards_i = np.concatenate([batch[i, :, :s], parity[i, :, :s]], axis=0)
-            # Padded-batch digests are only valid when every block shares the
-            # padded length; hash at true length on the host instead.
-            digests = self._host._digests(np.ascontiguousarray(shards_i))
-            out.append(
-                (
-                    [shards_i[j].tobytes() for j in range(k + m)],
-                    [digests[j].tobytes() for j in range(k + m)],
-                )
+        shards, digests = self._pipe(k, m).encode_padded(batch, sizes)
+        shards, digests = shards.cpu().numpy(), digests.cpu().numpy()
+        return [
+            (
+                [shards[i, j, : sizes[i]].tobytes() for j in range(k + m)],
+                [digests[i, j].tobytes() for j in range(k + m)],
             )
-        return out
+            for i in range(len(blocks))
+        ]
 
     def reconstruct(self, shards, k, m, want):
-        return self._host.reconstruct(shards, k, m, want)
+        return self.reconstruct_batch([shards], k, m, want)[0][0]
 
     def reconstruct_batch(self, rows_batch, k, m, want, with_digests=False):
-        """Uniform multi-block rebuilds run as one device program; singles
-        and irregular batches take the host codec."""
-        plan = uniform_recon_plan(rows_batch, k) if len(rows_batch) > 1 else None
-        if plan is None:
-            return super().reconstruct_batch(rows_batch, k, m, want, with_digests)
-        _, surv, s = plan
-        return run_device_reconstruct(
-            self._pipe(k, m), rows_batch, k, tuple(want), surv, s, with_digests
-        )
+        return reconstruct_groups(self._pipe(k, m), rows_batch, k, tuple(want), with_digests)[0]
+
+    def digests_batch(self, chunks):
+        from ..ops import highwayhash_cuda
+
+        def hash_rows(rows, length):
+            x = torch.from_numpy(stack_rows(rows, length)).to(self.device)
+            return [d.tobytes() for d in highwayhash_cuda.hash256_batch(x).cpu().numpy()]
+
+        return digests_by_length(chunks, hash_rows)
 
 
 _default: BlockCodec | None = None

@@ -12,10 +12,11 @@ bitrot layout and in the legacy whole-file layout, the healthy and degraded
 streaming GET of both, metadata updates, deletes, tier transitions, heal,
 and multipart uploads (object/multipart.py). Erasure math and bitrot
 hashing run through a BlockCodec (object/codec.py); the batching codec
-(parallel/batching.py) puts full blocks on the GPU kernels. GET-side frame
-verification and heal's verify go through ``codec.digests_batch``, and
-heal's rebuild through ``codec.reconstruct_batch(..., with_digests=True)``,
-so on the card they run the HighwayHash and Reed-Solomon kernels. Whole-file
+(parallel/batching.py) puts every block, reconstruct and digest on the GPU
+kernels. GET-side frame verification and heal's verify go through
+``codec.digests_batch``, and heal's rebuild through
+``codec.reconstruct_batch(..., with_digests=True)``, so on the card they
+run the HighwayHash and Reed-Solomon kernels. Whole-file
 checksums are host hashes, as in the JAX package.
 """
 
@@ -791,22 +792,13 @@ def _parse_frames(
     return out
 
 
-def _verify_frames(codec, chunk_sizes: list[int], parsed) -> list[bool]:
-    """Bitrot-verify every frame of one shard row window.
-
-    The uniform-size prefix (all blocks except a possible short tail) is
-    ONE ``codec.digests_batch`` call -- on the batching codec that is the
-    device HighwayHash kernel; a short tail frame verifies on the host."""
-    n = len(chunk_sizes)
-    if n == 0:
-        return []
-    same = n if n < 2 or chunk_sizes[-1] == chunk_sizes[0] else n - 1
-    digs = codec.digests_batch([c for _, c in parsed[:same]])
-    flags = [digs[i] == parsed[i][0] for i in range(same)]
-    for i in range(same, n):
-        d, c = parsed[i]
-        flags.append(bitrot_mod.digest_of(bytes(c)) == d)
-    return flags
+def _verify_frames(codec, parsed) -> list[bool]:
+    """Bitrot-verify every frame of one shard row window with ONE
+    ``codec.digests_batch`` call -- on the batching codec, one device
+    HighwayHash launch per chunk length (the full blocks, then a short
+    tail)."""
+    digs = codec.digests_batch([c for _, c in parsed])
+    return [digs[i] == parsed[i][0] for i in range(len(parsed))]
 
 
 def _shard_chunk_sizes(total_size: int, k: int) -> list[int]:
@@ -828,10 +820,15 @@ class ErasureObjects:
         disks: list[StorageAPI | None],
         parity: int | None = None,
         codec: codec_mod.BlockCodec | None = None,
+        set_index: int = 0,
+        pool_index: int = 0,
         ns_lock=None,
         rrs_parity: int | None = None,
     ):
         self.disks = disks
+        # Where this set sits in its pool and the pool in the server pools.
+        self.set_index = set_index
+        self.pool_index = pool_index
         self.parity = default_parity(len(disks)) if parity is None else parity
         # REDUCED_REDUNDANCY parity (storageclass RRS, default EC:2), never
         # above the standard class.
@@ -1563,7 +1560,7 @@ class ErasureObjects:
                     parsed = _parse_frames(blob, window_sizes)
                     # Verify here, in the parallel read thread: rows of one
                     # window verify concurrently.
-                    oks = _verify_frames(self.codec, window_sizes, parsed)
+                    oks = _verify_frames(self.codec, parsed)
                     if pb is not None:
                         if bufs.add(pb):
                             pb = None
@@ -2217,8 +2214,8 @@ class ErasureObjects:
         # Which shard rows need rebuilding? (missing drive, bad metadata, or
         # failed verification of any part chunk.) Verification is batched
         # ACROSS rows per part and routed through the codec, so the batching
-        # device codec runs one verify_digests step per chunk-length group
-        # instead of a per-shard host loop.
+        # device codec runs one hash launch per chunk length instead of a
+        # per-shard host loop.
         bad: set[int] = {j for j in range(k + mth) if by_shard[j] is None}
         if fi.size > 0 and whole:
             for part in parts:
@@ -2236,7 +2233,7 @@ class ErasureObjects:
                     try:
                         blob = _read_raw(j, part)
                         parsed = _parse_frames(blob, sizes)
-                        if not all(_verify_frames(self.codec, sizes, parsed)):
+                        if not all(_verify_frames(self.codec, parsed)):
                             bad.add(j)
                     except (errors.DiskError, errors.FileCorrupt):
                         bad.add(j)
@@ -2254,14 +2251,10 @@ class ErasureObjects:
 
                 def flush() -> None:
                     nonlocal pending, pending_bytes
-                    by_len: dict[int, list[int]] = {}
-                    for i, (_, _, c) in enumerate(pending):
-                        by_len.setdefault(len(c), []).append(i)
-                    for idxs in by_len.values():
-                        digs = self.codec.digests_batch([pending[i][2] for i in idxs])
-                        for i, got in zip(idxs, digs):
-                            if got != pending[i][1]:
-                                bad.add(pending[i][0])
+                    digs = self.codec.digests_batch([c for _, _, c in pending])
+                    for (row, want, _), got in zip(pending, digs):
+                        if got != want:
+                            bad.add(row)
                     pending = []
                     pending_bytes = 0
 

@@ -9,6 +9,7 @@ decide per-drive freshness for healing.
 from __future__ import annotations
 
 import contextvars
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 from ..storage.interface import StorageAPI
@@ -17,7 +18,14 @@ from ..utils import errors
 
 # Shared pool for fan-out drive IO. The reference bounds per-call concurrency
 # with errgroup (internal/sync/errgroup); a process-wide pool does the same.
-_POOL = ThreadPoolExecutor(max_workers=64, thread_name_prefix="drive-io")
+_IN_POOL = threading.local()
+
+
+def _mark_pool_thread() -> None:
+    _IN_POOL.active = True
+
+
+_POOL = ThreadPoolExecutor(max_workers=64, thread_name_prefix="drive-io", initializer=_mark_pool_thread)
 
 
 def parallel_map(fn, items):
@@ -25,7 +33,11 @@ def parallel_map(fn, items):
 
     Each task runs under a copy of the CALLER's contextvars (pool threads
     don't inherit them), so the request trace context follows the fan-out
-    into per-drive storage calls."""
+    into per-drive storage calls. A fan-out made from inside a pool task
+    (a bulk delete's per-object drive fan-out, a per-pool probe's drive
+    reads) runs in that task's thread: queued behind its siblings, it would
+    wait forever once every worker waits on one, as the JAX package's
+    ServerPools.delete_objects does past 64 keys."""
     ctx = contextvars.copy_context()
 
     def wrap(item):
@@ -34,6 +46,8 @@ def parallel_map(fn, items):
         except Exception as e:  # noqa: BLE001 - error values are the contract
             return None, e
 
+    if getattr(_IN_POOL, "active", False):
+        return [wrap(item) for item in items]
     return list(_POOL.map(wrap, items))
 
 

@@ -8,13 +8,16 @@ cmd/erasure-coding.go:63).
 Design (the JAX package's parallel/batching.py, on torch and CUDA):
   * Full 1 MiB blocks take the batched device path -- uniform [B, K, S]
     shapes, one fused encode+hash step (models/pipeline.py).
-  * Sub-window blocks >= 4 KiB coalesce on a second queue behind a bounded
+  * Every shorter block coalesces on a second queue behind a bounded
     latency budget (MTPU_BATCH_WAIT_US): concurrent small-object PUTs share
-    one parity-only device batch, padded on the shard-BYTE axis (GF math is
-    per byte position, so the true-length parity prefix is bit-exact);
-    digests are host-computed at true lengths. Tiny blocks still go to the
-    host codec (object/codec.py HostCodec) -- a device round trip isn't
-    worth it for a cold single block.
+    one device batch, padded on the shard-BYTE axis (GF math is per byte
+    position, so the true-length parity prefix is bit-exact), and each
+    block's rows are hashed on the device at their true length.
+  * Reconstructs and digests run on the device too, whatever their shape:
+    a window is split into groups of one loss pattern and one chunk
+    length, and digests into groups of one length. No route leads to the
+    host codec (object/codec.py HostCodec); on device="cpu" the same routes
+    run the kernels' plain torch versions.
   * The batcher thread collects requests until `max_batch` or
     `batch_timeout_s` after the first arrival, pads the batch to a bucketed
     size (1/2/4/8/16/32/64), and runs the step. On the card each worker owns
@@ -39,14 +42,11 @@ import numpy as np
 import torch
 
 from ..models.pipeline import ErasurePipeline, Geometry, resolve_device
-from ..object.codec import BlockCodec, HostCodec, bucket_batch, run_device_reconstruct, uniform_recon_plan
-from ..ops import rs_matrix
+from ..object.codec import BlockCodec, digests_by_length, reconstruct_groups, stack_rows
+from ..ops import highwayhash_cuda, rs_matrix
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
-# Small-object coalescing floor: below this a device trip can't win even
-# fully batched, and the host codec's latency is already microseconds.
-_SMALL_MIN = 4 << 10
 # Shard-byte-axis padding buckets start here (powers of two above), so the
 # small path runs O(log(block_size)) batch shapes per (k, m).
 _SMALL_LEN_MIN = 1 << 10
@@ -66,21 +66,18 @@ def _len_bucket(s: int) -> int:
     return b
 
 
-def _small_wait_s() -> float | None:
+def _small_wait_s() -> float:
     """MTPU_BATCH_WAIT_US: microseconds to hold a small-object batch open
-    after the first arrival. Negative or "off" disables the small device
-    path entirely (everything sub-window goes to the host codec); 0
-    batches only what is already queued."""
+    after the first arrival (default 500). "off" or a negative value holds
+    it open not at all: the batch takes what is already queued."""
     raw = os.environ.get("MTPU_BATCH_WAIT_US", "").strip().lower()
     if raw in ("off", "disable", "disabled"):
-        return None
+        return 0.0
     try:
         wait = float(raw) if raw else 500.0
     except ValueError:
         wait = 500.0
-    if wait < 0:
-        return None
-    return wait / 1e6
+    return max(wait, 0.0) / 1e6
 
 
 @dataclass
@@ -96,24 +93,30 @@ class _SmallRequest:
 
 
 class _PinnedPool:
-    """Reusable pinned host buffers by shape, for async copies to and from
-    the card. A buffer goes back to the pool only after the event of the
-    batch that used it has completed."""
+    """Reusable pinned host buffers for async copies to and from the card,
+    pooled by size (a power of two of at least 4 KiB); callers view their
+    first bytes. A buffer goes back to the pool only after the device work
+    that used it has completed."""
+
+    _MIN_BYTES = 4 << 10
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._free: dict[tuple, list[torch.Tensor]] = {}
+        self._free: dict[int, list[torch.Tensor]] = {}
 
-    def get(self, shape: tuple) -> torch.Tensor:
+    def get(self, nbytes: int) -> torch.Tensor:
+        size = self._MIN_BYTES
+        while size < nbytes:
+            size <<= 1
         with self._lock:
-            free = self._free.get(shape)
+            free = self._free.get(size)
             if free:
                 return free.pop()
-        return torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        return torch.empty(size, dtype=torch.uint8, pin_memory=True)
 
     def put(self, t: torch.Tensor) -> None:
         with self._lock:
-            self._free.setdefault(tuple(t.shape), []).append(t)
+            self._free.setdefault(t.numel(), []).append(t)
 
 
 @dataclass
@@ -150,7 +153,6 @@ class BatchingDeviceCodec(BlockCodec):
         self.batch_timeout_s = batch_timeout_s
         self.device = resolve_device(device)
         self.small_wait_s = _small_wait_s()
-        self._host = HostCodec()
         self._pinned = _PinnedPool() if self.device.type == "cuda" else None
         self._queues: dict[tuple, queue.Queue] = {}
         self._pipelines: dict = {}
@@ -171,13 +173,8 @@ class BatchingDeviceCodec(BlockCodec):
         self.verify_batches_run = 0
         # Padded-slot total: blocks_encoded / blocks_padded = batch occupancy.
         self.blocks_padded = 0
-        # Device-vs-CPU routing: work the batcher sends to the host codec
-        # (tails, irregular patterns, tiny or one-off chunk lengths).
-        self.host_fallback_blocks = 0
-        self.host_fallback_recon_blocks = 0
-        self.host_fallback_digest_chunks = 0
-        # Small-object coalescing path (sub-window blocks, parity on device,
-        # digests on the host at true lengths).
+        # Small-object coalescing path (sub-window blocks: parity and
+        # true-length digests on the device).
         self.small_blocks_encoded = 0
         self.small_batches_run = 0
         self.small_blocks_padded = 0
@@ -191,21 +188,38 @@ class BatchingDeviceCodec(BlockCodec):
         self.device_encode_seconds = 0.0
         self.device_recon_seconds = 0.0
         self.device_verify_seconds = 0.0
-        # Digest chunk lengths admitted to the device verify path besides
-        # the full-chunk lengths (the JAX package's routing: one-off tail
-        # lengths stay on the host).
-        self._verify_lens: set[int] = set()
 
-    def _side_stream(self):
-        """A pooled CUDA stream for a request thread's synchronous device
-        call (degraded-read reconstruct, GET verify), so calls from the
+    def _stream(self):
+        """A pooled CUDA stream for a worker or for a request thread's
+        synchronous device call (reconstruct, verify), so calls from the
         parallel shard-read threads overlap on the card instead of queueing
-        on one stream; no-op on the CPU."""
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        return torch.cuda.stream(torch.cuda.Stream(self.device))
+        on one stream; None on the CPU."""
+        return torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    @staticmethod
+    def _on(stream):
+        return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+    def _staged(self, shape: tuple, hold: list) -> torch.Tensor:
+        """A host u8 tensor of `shape` for staging device copies: a view of a
+        pooled pinned buffer on the card (appended to `hold`, handed back by
+        _release once the copies are done), plain memory on the CPU."""
+        if self._pinned is None:
+            return torch.empty(shape, dtype=torch.uint8)
+        n = int(np.prod(shape))
+        buf = self._pinned.get(n)
+        hold.append(buf)
+        return buf[:n].view(shape)
+
+    def _release(self, hold: list) -> None:
+        for buf in hold:
+            self._pinned.put(buf)
 
     # -- worker management ---------------------------------------------------
+
+    def _pipe(self, k: int, m: int) -> ErasurePipeline:
+        with self._lock:
+            return self._pipeline_locked(k, m)
 
     def _pipeline_locked(self, k: int, m: int) -> ErasurePipeline:
         key = (k, m)
@@ -264,7 +278,7 @@ class BatchingDeviceCodec(BlockCodec):
         k, m = key
         q = self._queues[key]
         pipe = self._pipelines[key]
-        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        stream = self._stream()
         # One-deep pending slot: under sustained load batch i+1 is
         # dispatched before the worker waits on batch i's event.
         pending = None
@@ -308,10 +322,9 @@ class BatchingDeviceCodec(BlockCodec):
                 shards, digests = pipe.encode(arr)
                 return _Pending(batch, shards.numpy(), digests.numpy(), None, pinned,
                                 k, m, b_real, b_pad, t0)
-            host_in = self._pinned.get((b_pad, k, s))
-            host_shards = self._pinned.get((b_pad, k + m, s))
-            host_digests = self._pinned.get((b_pad, k + m, 32))
-            pinned = [host_in, host_shards, host_digests]
+            host_in = self._staged((b_pad, k, s), pinned)
+            host_shards = self._staged((b_pad, k + m, s), pinned)
+            host_digests = self._staged((b_pad, k + m, 32), pinned)
             arr = host_in.numpy()
             for i, req in enumerate(batch):
                 arr[i] = req.shards
@@ -325,8 +338,7 @@ class BatchingDeviceCodec(BlockCodec):
             return _Pending(batch, host_shards.numpy(), host_digests.numpy(), event, pinned,
                             k, m, b_real, b_pad, t0)
         except Exception as e:  # noqa: BLE001 - surfaced through every future
-            for t in pinned:
-                self._pinned.put(t)
+            self._release(pinned)
             for req in batch:
                 if not req.future.done():
                     req.future.set_exception(e)
@@ -355,22 +367,22 @@ class BatchingDeviceCodec(BlockCodec):
                 if not req.future.done():
                     req.future.set_exception(e)
         finally:
-            for p in rec.pinned:
-                self._pinned.put(p)
+            self._release(rec.pinned)
 
     def _small_worker(self, key: tuple) -> None:
         k, m = key[0], key[1]
         q = self._queues[key]
         pipe = self._pipelines[(k, m)]
-        window = self.small_wait_s or 0.0
+        stream = self._stream()
         while not self._stop.is_set():
             try:
                 first = q.get(timeout=0.1)
             except queue.Empty:
                 continue
-            self._run_small_batch(pipe, k, m, self._collect(q, first, window))
+            self._run_small_batch(pipe, stream, k, m, self._collect(q, first, self.small_wait_s))
 
-    def _run_small_batch(self, pipe: ErasurePipeline, k: int, m: int, batch: list[_SmallRequest]) -> None:
+    def _run_small_batch(self, pipe: ErasurePipeline, stream, k: int, m: int, batch: list[_SmallRequest]) -> None:
+        hold: list = []
         try:
             datas = [np.frombuffer(req.block, dtype=np.uint8) for req in batch]
             shard_lens = [rs_matrix.shard_size(d.size, k) for d in datas]
@@ -378,158 +390,117 @@ class BatchingDeviceCodec(BlockCodec):
             # position, so parity[:, :true_len] of the padded batch is
             # bit-identical to encoding at true length. (Padding the block
             # itself would change ceil(len/k) and thus the parity bytes.)
+            # Only each block's true-length prefix is read back or hashed,
+            # so the staging buffer is not cleared.
             s_pad = _len_bucket(max(shard_lens))
             b_real = len(batch)
             b_pad = _bucket(b_real)
-            arr = np.zeros((b_pad, k, s_pad), dtype=np.uint8)
+            host_in = self._staged((b_pad, k, s_pad), hold)
+            arr = host_in.numpy()
             for i, d in enumerate(datas):
                 arr[i, :, : shard_lens[i]] = rs_matrix.split(d, k)
+            host_shards = self._staged((b_real, k + m, s_pad), hold)
+            host_digests = self._staged((b_real, k + m, 32), hold)
             t0 = _time.perf_counter()
-            parity = pipe.encode_parity(arr).cpu().numpy()  # [b_pad, M, s_pad]
+            with self._on(stream):
+                shards, digests = pipe.encode_padded(host_in, shard_lens)
+                host_shards.copy_(shards[:b_real], non_blocking=True)
+                host_digests.copy_(digests, non_blocking=True)
+            if stream is not None:
+                stream.synchronize()
             dt = _time.perf_counter() - t0
             with self._stats_lock:
                 self.device_encode_seconds += dt
                 self.small_batches_run += 1
                 self.small_blocks_encoded += b_real
                 self.small_blocks_padded += b_pad
+            out_shards, out_digests = host_shards.numpy(), host_digests.numpy()
             for i, req in enumerate(batch):
                 s_i = shard_lens[i]
-                rows = np.ascontiguousarray(
-                    np.concatenate([arr[i, :, :s_i], parity[i, :, :s_i]], axis=0)
-                )  # [K+M, s_i]
-                # Digests at TRUE length with the host codec's hash --
-                # padded-row digests would be wrong.
-                digs = self._host._digests(rows)
                 req.future.set_result(
                     (
-                        [rows[j].tobytes() for j in range(k + m)],
-                        [digs[j].tobytes() for j in range(k + m)],
+                        [out_shards[i, j, :s_i].tobytes() for j in range(k + m)],
+                        [out_digests[i, j].tobytes() for j in range(k + m)],
                     )
                 )
         except Exception as e:  # noqa: BLE001 - surfaced through every future
             for req in batch:
                 if not req.future.done():
                     req.future.set_exception(e)
+        finally:
+            self._release(hold)
 
     # -- BlockCodec interface -------------------------------------------------
 
     def encode(self, blocks, k, m):
-        futures: list[Future | None] = [None] * len(blocks)
-        host_idx: list[int] = []
+        """Full blocks join the full-block batch, every shorter block the
+        small-object batch; both run on the device."""
+        futures: list[Future] = []
         q = None
         sq = None
-        for i, block in enumerate(blocks):
-            n = len(block)
-            if n == self.block_size:
+        for block in blocks:
+            f: Future = Future()
+            if len(block) == self.block_size:
                 if q is None:
                     q = self._ensure_worker(k, m)
-                f: Future = Future()
                 q.put(_Request(rs_matrix.split(np.frombuffer(block, np.uint8), k), f))
-                futures[i] = f
-            elif self.small_wait_s is not None and _SMALL_MIN <= n < self.block_size:
-                # Sub-window block: coalesce with concurrent small PUTs into
-                # one parity-only device batch (MTPU_BATCH_WAIT_US window).
+            else:
                 if sq is None:
                     sq = self._ensure_small_worker(k, m)
-                f = Future()
                 sq.put(_SmallRequest(block, f))
-                futures[i] = f
-            else:
-                host_idx.append(i)
-        with self._stats_lock:
-            self.host_fallback_blocks += len(host_idx)
-        host_results = (
-            self._host.encode([blocks[i] for i in host_idx], k, m) if host_idx else []
-        )
-        out: list = [None] * len(blocks)
-        for j, i in enumerate(host_idx):
-            out[i] = host_results[j]
-        for i, f in enumerate(futures):
-            if f is not None:
-                out[i] = f.result(timeout=60)
-        return out
+            futures.append(f)
+        return [f.result(timeout=60) for f in futures]
 
     def reconstruct(self, shards, k, m, want):
-        return self._host.reconstruct(shards, k, m, want)
+        return self.reconstruct_batch([shards], k, m, want)[0][0]
 
     def reconstruct_batch(self, rows_batch, k, m, want, with_digests=False):
-        """Degraded-GET windows of full blocks with a uniform loss pattern
-        run as ONE padded-batch device program (the served decode path the
-        reference runs per block, cmd/erasure-decode.go:206); tails and
-        irregular batches go to the host codec, mirroring the encode-side
-        split."""
-        plan = uniform_recon_plan(rows_batch, k) if len(rows_batch) > 1 else None
-        if plan is None or plan[2] != rs_matrix.shard_size(self.block_size, k):
-            with self._stats_lock:
-                self.host_fallback_recon_blocks += len(rows_batch)
-            return self._host.reconstruct_batch(rows_batch, k, m, want, with_digests)
-        _, surv, s = plan
-        self._ensure_worker(k, m)
+        """Degraded-GET and heal windows rebuilt on the device (the served
+        decode path the reference runs per block, cmd/erasure-decode.go:206):
+        one padded-batch program per group of one loss pattern and one chunk
+        length -- a window's full blocks, then its short tail -- with the
+        results in the caller's order."""
+        pipe = self._pipe(k, m)
+        stream = self._stream()
         t0 = _time.perf_counter()
-        with self._side_stream():
-            out = run_device_reconstruct(
-                self._pipelines[(k, m)], rows_batch, k, tuple(want), surv, s, with_digests
-            )
+        with self._on(stream):
+            out, groups = reconstruct_groups(pipe, rows_batch, k, tuple(want), with_digests)
         dt = _time.perf_counter() - t0
         with self._stats_lock:
             self.device_recon_seconds += dt
-            self.recon_batches_run += 1
+            self.recon_batches_run += groups
             self.blocks_reconstructed += len(rows_batch)
         return out
 
     def digests_batch(self, chunks):
-        """GET-verify batches run on the device (pipeline.verify_digests);
-        small or ragged batches, tiny chunks and one-off tail lengths stay
-        on the host."""
-        if len(chunks) < 4 or len({len(c) for c in chunks}) != 1:
-            with self._stats_lock:
-                self.host_fallback_digest_chunks += len(chunks)
-            return self._host.digests_batch(chunks)
-        length = len(chunks[0])
-        # Full-chunk lengths (ceil(block/k) for any plausible k) are the
-        # steady-state production sizes: always device-eligible and never
-        # counted against the cap on other lengths.
-        full_chunk = length in {-(-self.block_size // k) for k in range(1, 33)}
-        if not full_chunk:
-            with self._lock:
-                if length not in self._verify_lens:
-                    if length < (16 << 10) or len(self._verify_lens) >= 8:
-                        pass_to_host = True
-                    else:
-                        self._verify_lens.add(length)
-                        pass_to_host = False
-                else:
-                    pass_to_host = False
-            if pass_to_host:
-                with self._stats_lock:
-                    self.host_fallback_digest_chunks += len(chunks)
-                return self._host.digests_batch(chunks)
+        """GET-verify and heal-verify digests on the device: one hash launch
+        per distinct chunk length, results in the caller's order."""
+        return digests_by_length(chunks, self._hash_rows)
 
-        key = "verify"
-        with self._lock:
-            pipe = self._pipelines.get(key)
-            if pipe is None:
-                # Geometry is irrelevant for pure digesting; any instance
-                # provides the verify step.
-                pipe = self._pipelines[key] = ErasurePipeline(Geometry(1, 1), device=self.device)
-        out: list[bytes] = []
-        cap = bucket_batch(len(chunks))
-        for lo in range(0, len(chunks), cap):
-            sub = chunks[lo : lo + cap]
-            n_pad = bucket_batch(len(sub))
-            arr = np.zeros((n_pad, 1, len(sub[0])), dtype=np.uint8)
-            for i, c in enumerate(sub):
-                arr[i, 0] = np.frombuffer(c, dtype=np.uint8)
+    def _hash_rows(self, rows: list, length: int) -> list[bytes]:
+        """[n] equal-length rows -> their digests: staged into one pinned
+        [n, length] buffer, copied in, hashed and copied out on a pooled
+        stream."""
+        hold: list = []
+        try:
+            host_in = self._staged((len(rows), length), hold)
+            stack_rows(rows, length, host_in.numpy())
+            host_out = self._staged((len(rows), 32), hold)
+            stream = self._stream()
             t0 = _time.perf_counter()
-            with self._side_stream():
-                digs = pipe.verify_digests(arr).cpu().numpy()  # [n_pad, 1, 32]
+            with self._on(stream):
+                x = host_in.to(self.device, non_blocking=True)
+                host_out.copy_(highwayhash_cuda.hash256_batch(x), non_blocking=True)
+            if stream is not None:
+                stream.synchronize()
             dt = _time.perf_counter() - t0
             with self._stats_lock:
                 self.device_verify_seconds += dt
                 self.verify_batches_run += 1
-                self.digests_verified += len(sub)
-            out.extend(digs[i, 0].tobytes() for i in range(len(sub)))
-        return out
+                self.digests_verified += len(rows)
+            return [d.tobytes() for d in host_out.numpy()]
+        finally:
+            self._release(hold)
 
     # -- metrics surface ------------------------------------------------------
 
@@ -561,13 +532,14 @@ class BatchingDeviceCodec(BlockCodec):
                 "double_buffered_batches": self.double_buffered_batches,
                 "mesh_devices": self.mesh_devices,
                 "chip_blocks": list(self.chip_blocks),
-                "host_fallback_blocks": self.host_fallback_blocks,
-                "host_fallback_recon_blocks": self.host_fallback_recon_blocks,
-                "host_fallback_digest_chunks": self.host_fallback_digest_chunks,
+                # Work sent to the host codec: no route leads there, on
+                # either device; the keys keep the JAX package's shape.
+                "host_fallback_blocks": 0,
+                "host_fallback_recon_blocks": 0,
+                "host_fallback_digest_chunks": 0,
                 "device_encode_seconds": self.device_encode_seconds,
                 "device_recon_seconds": self.device_recon_seconds,
                 "device_verify_seconds": self.device_verify_seconds,
-                "compiled_verify_lens": len(self._verify_lens),
             }
 
     def close(self) -> None:

@@ -92,7 +92,8 @@ def test_part_infos_equal(upload):
 def test_parts_encoded_on_the_device_path(upload):
     st = upload["codec"].stats()
     assert st["blocks_encoded"] == 5  # the five full blocks of the 5 MiB part
-    assert st["host_fallback_blocks"] == 1  # the 1,000-byte part
+    assert st["small_blocks_encoded"] == 1  # the 1,000-byte part, on the device path
+    assert st["host_fallback_blocks"] == 0
 
 
 def test_list_parts_equal(upload):

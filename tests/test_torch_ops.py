@@ -479,6 +479,13 @@ def _port_modules() -> list[str]:
     return mods
 
 
+def test_import_checks_cover_sets_pools_and_metacache():
+    mods = _port_modules()
+    for m in ("object.metacache", "object.sets", "object.pools"):
+        assert f"minio_tpu_torch.{m}" in mods
+        assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"
