@@ -27,7 +27,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each with its bytes bound; the hash at [16, 87382], [64, 87382] (heal's
    verify batch and its rebuilt-row hash, 16 blocks x 4 rows) and
    [1024, 87382], and at [16, 74899] and [256, 2731]; the RS kernel also on
-   the 14+2 encode view at B = 16 and 64 and on two small-path batches.
+   the 14+2 encode view at B = 16 and 64, on two small-path batches and on
+   phase 5's reconstructs (B = 1 and 4, R = 1 and 4, S = 87,382 and a
+   padded 16,384), each beside the library yardstick (one torch fp16
+   matmul of the same GF(2) product on pre-unpacked bits).
 3. The slice: one 16-drive 12+4 erasure set under a temp dir, driven through
    ErasureObjects with BatchingDeviceCodec(max_batch=64): PUT one 128 MiB
    object, then 8 concurrent 16 MiB objects; GET each back byte-exact;
@@ -95,6 +98,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    class)) and the device time those launches take at phase 2's times.
    Both kernels must have launched at K = 14, R = 2 and on small-path
    batches.
+6. The S3 HTTP front over phase 5's deployment after its heal: the port's
+   S3Server (SigV4, IAM root credentials, check_skew=True) on a
+   ThreadedServer at 127.0.0.1, sharing the phase's codec. The client is a
+   spawned process of 16 threads with keep-alive http.client connections;
+   it signs with the port's api/auth.sign_request, a body up to 1 MiB with
+   its sha256 and a larger one aws-chunked in 64 KiB chunks
+   (api/streaming.encode_chunked), as minio-go does, and compares every
+   body it reads with the bytes it made from the same seeds. Paths, each
+   with the counts reset before it and read after:
+   - http_put: 512 new objects (tenant-XX/YYYY-MM-DD/http-NNNNN, phase 5's
+     size law, one in 8 REDUCED_REDUNDANCY); both kernels;
+   - http_get: those 512 and 512 of phase 5's surviving objects in pool 0
+     (pool 1's lost one drive's copy to phase 5's heal_bucket check),
+     byte-exact; hh256 and no rs_gf_apply. Every HTTP-PUT object then also
+     reads back byte-identical through layer.get_object;
+   - http_big: one 128 MiB aws-chunked PUT, a 128 MiB multipart upload of
+     16 x 8 MiB parts from 4 threads (ETag "-16"), a GET of both; both
+     kernels;
+   - http_degraded_get: the part files of 4 drives of pool 0's set 0
+     removed (2 for a 14+2 object), every surviving object of that set read
+     back byte-exact; both kernels.
+   Then, with no rate: a HEAD, three Range GETs (first byte, a 1 MiB
+   window, a suffix of 100) and an If-None-Match 304 per size class;
+   ListObjectsV2 in pages of 1,000 equal to the layer's listing; POST
+   ?delete of 128 new keys, gone from the next listing; an unsigned GET
+   (403 AccessDenied), a tampered signature (403 SignatureDoesNotMatch)
+   and a PUT with X-Mtpu-Deadline 0.0005 (503 SlowDownWrite, not listed).
+   Each path prints objects/s, GiB/s, the client's p50 and p99 latency, the
+   codec's device_* clocks, the launches by shape and the device time they
+   take at phase 2's times, beside phase 3-5's direct-layer rates of the
+   same run. No work may reach the host codec or a plain version.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -105,6 +139,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import contextlib
 import itertools
 import json
 import os
@@ -114,6 +149,8 @@ import sys
 import tempfile
 import threading
 import time
+import xml.etree.ElementTree as ET
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -257,17 +294,34 @@ def phase_kernels(dev: torch.device) -> dict:
         # host time per call is not far below the kernel's.
         return graph_ms([lambda xi=xi, oi=oi: rs_cuda.apply(xi, coeffs, out=oi) for xi, oi in calls], 10)
 
+    def rs_lib_ms(b: int, r: int, layout: str, k: int = K, s: int = S_FULL) -> float:
+        # The library yardstick at this shape: one torch fp16 matmul of
+        # pre-unpacked bits [B*S, K*8] by the bit-expanded coefficients.
+        coeffs = recs[r] if layout == "reconstruct" else parity if k == K else parity_rrs
+        bits = torch.randint(0, 2, (b * s, k * 8), device=dev, dtype=torch.float16)
+        w = torch.from_numpy(rs_matrix.bit_expand(coeffs).astype(np.float16)).to(dev)
+        ms = cuda_time_ms(lambda: bits @ w, 20)
+        del bits
+        return ms
+
+    # The shapes of the paths: encode (contiguous, the fused view, 14+2, the
+    # small path's padded batches), heal's 4-row window, and the degraded
+    # GET's reconstructs of phase 5 (B = 1 and 4 blocks, R = 1 and 4 rows,
+    # a full-block S and a padded small S).
     rs_shapes = []
     for b, r, layout, k, s in ((64, M, "contiguous", K, S_FULL), (16, M, "encode view", K, S_FULL),
                                (64, M, "encode view", K, S_FULL), (16, 4, "reconstruct", K, S_FULL),
                                (16, 2, "encode view", K_RRS, S_RRS), (64, 2, "encode view", K_RRS, S_RRS),
-                               (64, M, "small-path batch", K, 16384), (8, M, "small-path batch", K, 131072)):
+                               (64, M, "small-path batch", K, 16384), (8, M, "small-path batch", K, 131072),
+                               *((b, r, "reconstruct", K, s) for s in (S_FULL, 16384) for b in (1, 4)
+                                 for r in (1, 4))):
         ms = rs_cold_ms(b, r, layout, k, s)
         bound_ms, bound_by = rs_bound(b, r, k, s)
+        lib_ms = rs_lib_ms(b, r, layout, k, s)
         rs_shapes.append({"shape": [b, k, s], "rows": r, "layout": layout, "ms": ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by})
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         log(f"kernel rs_gf_apply: [{b},{k},{s}] -> {r} rows, {layout}: {ms:.4f} ms "
-            f"(bound {bound_ms:.4f} ms, {bound_by})")
+            f"(bound {bound_ms:.4f} ms, {bound_by}; torch fp16 bit-matmul {lib_ms:.4f} ms)")
     rs_ms = rs_shapes[0]["ms"]
     rs_plain_ms = cuda_time_ms(lambda: rs_cuda.plain(x, parity), 2)
     # Library yardstick: one torch matmul doing the same GF(2) product on
@@ -517,7 +571,14 @@ def _no_host_fallback(codec, path: str) -> None:
         raise AssertionError(f"{path}: work went to the host codec: {fallback}")
 
 
-def phase_slice(dev, smi: str, root: str, codec, tally: Tally, big_mib: int = 128, small_mib: int = 16):
+def _rate(rates: dict | None, key: str, n_objects: int, seconds: float, nbytes: int) -> None:
+    """Keep a direct-layer rate for phase 6 to print beside its own."""
+    if rates is not None:
+        rates[key] = {"objects_per_s": n_objects / seconds, "gib_per_s": nbytes / 2**30 / seconds}
+
+
+def phase_slice(dev, smi: str, root: str, codec, tally: Tally, big_mib: int = 128, small_mib: int = 16,
+                rates: dict | None = None):
     from minio_tpu_torch.object.codec import HostCodec
     from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
 
@@ -567,6 +628,8 @@ def phase_slice(dev, smi: str, root: str, codec, tally: Tally, big_mib: int = 12
         raise AssertionError(f"device counters did not move: {st}")
     _no_host_fallback(codec, "PUT/GET/degraded GET")
     gib_big, gib_small = big_mib / 1024, 8 * small_mib / 1024
+    _rate(rates, "put_big", 1, put_big, big_mib * MiB)
+    _rate(rates, "get_big", 1, get_big, big_mib * MiB)
     log(f"slice stats: {json.dumps(st)}")
     log(f"launches during the {big_mib} MiB PUT: rs_gf_apply {put_big_launches[0]}, "
         f"hh256 {put_big_launches[1]}")
@@ -679,7 +742,8 @@ def phase_heal(smi: str, eo, drives, codec, tally: Tally, payloads: dict, lost: 
     return {"heal": counts, "heal_flipped_byte": counts_flip}
 
 
-def phase_multipart(smi: str, root: str, eo, codec, tally: Tally, part_mib: int = 8) -> dict:
+def phase_multipart(smi: str, root: str, eo, codec, tally: Tally, part_mib: int = 8,
+                    rates: dict | None = None) -> dict:
     from minio_tpu_torch.object.codec import HostCodec
 
     rng = np.random.default_rng(21)
@@ -709,6 +773,7 @@ def phase_multipart(smi: str, root: str, eo, codec, tally: Tally, part_mib: int 
         raise AssertionError(f"multipart: {oi}")
     if eo.get_object("bench", "mp")[1] != data:
         raise AssertionError("multipart GET: bytes differ")
+    _rate(rates, "multipart", 1, mp_s, len(data))
     log(f"multipart PUT ({len(parts)} parts, {len(data) / MiB:.2f} MiB, 4 parts from 4 threads): "
         f"{len(data) / 2**30 / mp_s:.3f} GiB/s [{smi}]")
     # The same upload through a numpy HostCodec set: same part.N files.
@@ -811,11 +876,12 @@ class Traffic:
     log-uniform from 1 KiB to 4 MiB, one object in 8 REDUCED_REDUNDANCY.
     The bytes are one buffer made in bulk; each object is a view of it."""
 
-    def __init__(self, seed: int, n: int, max_size: int = 4 * MiB):
+    def __init__(self, seed: int, n: int, max_size: int = 4 * MiB, stem: str = "obj"):
         rng = np.random.default_rng(seed)
         tenants = rng.integers(0, TENANTS, n)
         days = rng.integers(0, DAYS, n)
-        self.names = [f"tenant-{t:02d}/2024-01-{d + 1:02d}/obj-{i:05d}" for i, (t, d) in enumerate(zip(tenants, days))]
+        self.names = [f"tenant-{t:02d}/2024-01-{d + 1:02d}/{stem}-{i:05d}"
+                      for i, (t, d) in enumerate(zip(tenants, days))]
         self.sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(max_size), n)).astype(np.int64)
         self.rrs = rng.permutation(n) < n // 8
         offsets = np.concatenate([[0], np.cumsum(self.sizes)])
@@ -939,8 +1005,10 @@ def _shape_summary(counts: dict) -> dict:
 
 
 def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 2048, threads: int = 16,
-                max_size: int = 4 * MiB, seed: int = 5) -> dict:
-    """A 48-drive deployment through ServerPools: see the module docstring."""
+                max_size: int = 4 * MiB, seed: int = 5, rates: dict | None = None) -> tuple[dict, SimpleNamespace]:
+    """A 48-drive deployment through ServerPools: see the module docstring.
+    Returns the paths' counts and the deployment as it stands after the
+    heal, for phase 6."""
     from minio_tpu_torch import ErasureSets, ServerPools
     from minio_tpu_torch.object import pools as pools_mod
     from minio_tpu_torch.object.codec import HostCodec
@@ -992,6 +1060,7 @@ def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objec
     _no_host_fallback(codec, "pools: PUT into pool 0")
     bytes0 = sum(len(traffic.data[n]) for n in first)
     log(rate(f"pools PUT into pool 0 ({threads} threads)", first, put0_s, bytes0))
+    _rate(rates, "pools_put_pool0", len(first), put0_s, bytes0)
     clock("pools PUT into pool 0", before, put0_s)
 
     # Bytes against the host codec: a sample of 32 objects of every size
@@ -1099,6 +1168,7 @@ def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objec
     _no_host_fallback(codec, "pools: PUT into pool 1 and overwrites")
     bytes1 = sum(len(traffic.data[n]) for n in rest) + sum(len(v) for v in overwritten.values())
     log(rate(f"pools PUT into pool 1 + {len(overwritten)} overwrites ({threads} threads)", rest + list(overwritten), put1_s, bytes1))
+    _rate(rates, "pools_put_pool1", len(rest) + len(overwritten), put1_s, bytes1)
     clock("pools PUT into pool 1", before, put1_s)
     current = {name: traffic.data[name] for name in traffic.names}
     current.update(overwritten)
@@ -1130,6 +1200,7 @@ def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objec
     if not all(got):
         raise AssertionError(f"pools GET: {got.count(False)} objects differ")
     log(rate(f"pools GET, byte-exact ({threads} threads)", traffic.names, get_s, sum(len(v) for v in current.values())))
+    _rate(rates, "pools_get", len(traffic.names), get_s, sum(len(v) for v in current.values()))
     clock("pools GET", before, get_s)
 
     # 5. Listing across both pools: exact without a delimiter; the
@@ -1188,6 +1259,7 @@ def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objec
         raise AssertionError(f"pools degraded GET: {got.count(False)} objects differ")
     log(rate(f"pools degraded GET of pool 0's set 1 (4 drives lost; 2 for RRS), byte-exact ({threads} threads)",
              targets, dget_s, sum(len(current[n]) for n in targets)))
+    _rate(rates, "pools_degraded_get", len(targets), dget_s, sum(len(current[n]) for n in targets))
     clock("pools degraded GET", before, dget_s)
     before = codec.stats()
     tally.reset()
@@ -1239,6 +1311,397 @@ def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objec
     hh_lens = {length for counts in paths.values() for (_, length) in counts["hh256_by_n_l"]}
     if S_RRS not in hh_lens:
         raise AssertionError("phase 5 launched no hh256 at 74,899 bytes (1 MiB / 14)")
+    state = SimpleNamespace(layer=layer, traffic=traffic, seed=seed, max_size=max_size, first=first,
+                            overwritten=set(overwritten), live=live, sets0=sets0)
+    return paths, state
+
+
+# -- phase 6: the S3 HTTP front -------------------------------------------------------------
+
+HTTP_CREDS = ("chipsmoke", "chip-smoke-secret-key")
+HTTP_THREADS = 16
+# minio-go's signing defaults: a body up to this size carries its sha256 in
+# x-amz-content-sha256; a larger one goes aws-chunked in 64 KiB chunks
+# (payloadChunkSize, pkg/signer/request-signature-streaming.go).
+SIGNED_BODY_MAX = MiB
+STREAM_CHUNK = 64 << 10
+
+
+def _client_main(conn, endpoint: str) -> None:
+    """Phase 6's S3 client, in a spawned process of its own so that its
+    signing and hashing do not share the server's GIL. It signs with the
+    port's api/auth.sign_request and api/streaming.encode_chunked over
+    keep-alive http.client connections (one a thread), holds the expected
+    bytes of every object (made from the same seeds as the server side's),
+    and answers commands from the pipe until "stop"."""
+    import http.client
+    import traceback
+    import urllib.parse
+
+    from minio_tpu_torch.api import auth, streaming
+
+    host = urllib.parse.urlparse(endpoint).netloc
+    creds = auth.Credentials(*HTTP_CREDS)
+    objects: dict = {}
+    local = threading.local()
+
+    def signed(method: str, path: str, query: list, headers: dict, body) -> tuple[dict, object]:
+        h = {k.lower(): v for k, v in headers.items()}
+        h["host"] = host
+        if len(body) > SIGNED_BODY_MAX:
+            h["content-encoding"] = "aws-chunked"
+            h["x-amz-decoded-content-length"] = str(len(body))
+            h = auth.sign_request(creds, method, path, query, h, None, payload_hash=auth.STREAMING_PAYLOAD)
+            seed = h["authorization"].rsplit("Signature=", 1)[1]
+            body = streaming.encode_chunked(bytes(body), seed, creds, h["x-amz-date"], "us-east-1",
+                                            chunk_size=STREAM_CHUNK)
+        else:
+            h = auth.sign_request(creds, method, path, query, h, body)
+        h.pop("host")
+        return h, body
+
+    def send(method: str, path: str, query=(), headers=None, body=b"", sign: bool = True,
+             fresh: bool = False, tamper: bool = False) -> tuple[int, dict, bytes, float]:
+        query = list(query)
+        headers = dict(headers or {})
+        if sign:
+            headers, body = signed(method, path, query, headers, body)
+            if tamper:
+                headers["authorization"] = headers["authorization"][:-4] + "0000"
+        url = urllib.parse.quote(path) + ("?" + urllib.parse.urlencode(query) if query else "")
+        c = None if fresh else getattr(local, "conn", None)
+        if c is None:
+            c = http.client.HTTPConnection(host, timeout=600)
+        t0 = time.perf_counter()
+        c.request(method, url, body=body, headers=headers)
+        r = c.getresponse()
+        data = r.read()
+        dt = time.perf_counter() - t0
+        if fresh or r.will_close:
+            c.close()
+            if not fresh:
+                local.conn = None
+        else:
+            local.conn = c
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data, dt
+
+    def fan_out(fn, items, threads: int) -> tuple[list, float]:
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(threads) as ex:
+            out = list(ex.map(fn, items))
+        return out, time.perf_counter() - t0
+
+    def register(seed: int, n: int, max_size: int, stem: str) -> int:
+        objects.update(Traffic(seed, n, max_size, stem).data)
+        return n
+
+    def register_bytes(name: str, seed: int, nbytes: int) -> int:
+        objects[name] = memoryview(np.random.default_rng(seed).bytes(nbytes))
+        return nbytes
+
+    def put(names: list, headers: dict, threads: int) -> dict:
+        def one(name):
+            st, h, body, dt = send("PUT", f"/bench/{name}", headers=headers.get(name), body=objects[name])
+            if st != 200:
+                raise AssertionError(f"PUT {name}: {st} {body[:300]!r}")
+            return dt, h.get("etag", "")
+        out, wall = fan_out(one, names, threads)
+        return {"latencies": [o[0] for o in out], "etags": [o[1] for o in out], "wall": wall,
+                "bytes": sum(len(objects[n]) for n in names)}
+
+    def get(names: list, threads: int) -> dict:
+        def one(name):
+            st, _, body, dt = send("GET", f"/bench/{name}")
+            if st != 200 or body != objects[name]:
+                raise AssertionError(f"GET {name}: status {st}, {len(body)} bytes, "
+                                     f"want 200 and {len(objects[name])} equal bytes")
+            return dt
+        lat, wall = fan_out(one, names, threads)
+        return {"latencies": lat, "wall": wall, "bytes": sum(len(objects[n]) for n in names)}
+
+    def multipart(name: str, part_size: int, threads: int) -> dict:
+        t0 = time.perf_counter()
+        st, _, body, dt0 = send("POST", f"/bench/{name}", [("uploads", "")])
+        if st != 200:
+            raise AssertionError(f"initiate {name}: {st} {body[:300]!r}")
+        uid = ET.fromstring(body).findtext("{*}UploadId")
+        data = objects[name]
+        n_parts = -(-len(data) // part_size)
+
+        def part(n):
+            st, h, b, dt = send("PUT", f"/bench/{name}", [("partNumber", str(n)), ("uploadId", uid)],
+                                body=data[(n - 1) * part_size: n * part_size])
+            if st != 200:
+                raise AssertionError(f"part {n} of {name}: {st} {b[:300]!r}")
+            return dt, h["etag"]
+        out, _ = fan_out(part, range(1, n_parts + 1), threads)
+        xml = "".join(f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
+                      for n, (_, e) in enumerate(out, 1))
+        st, _, body, dt1 = send("POST", f"/bench/{name}", [("uploadId", uid)],
+                                body=f"<CompleteMultipartUpload>{xml}</CompleteMultipartUpload>".encode())
+        if st != 200:
+            raise AssertionError(f"complete {name}: {st} {body[:300]!r}")
+        return {"etag": ET.fromstring(body).findtext("{*}ETag"), "wall": time.perf_counter() - t0,
+                "latencies": [dt0, *(o[0] for o in out), dt1], "bytes": len(data), "parts": n_parts}
+
+    def list_v2(prefix: str, max_keys: int) -> dict:
+        keys, token, pages = [], "", 0
+        while True:
+            q = [("list-type", "2"), ("max-keys", str(max_keys)), ("prefix", prefix)]
+            if token:
+                q.append(("continuation-token", token))
+            st, _, body, _ = send("GET", "/bench", q)
+            if st != 200:
+                raise AssertionError(f"ListObjectsV2: {st} {body[:300]!r}")
+            root = ET.fromstring(body)
+            keys += [e.findtext("{*}Key") for e in root.findall("{*}Contents")]
+            pages += 1
+            if root.findtext("{*}IsTruncated") != "true":
+                return {"keys": keys, "pages": pages}
+            token = root.findtext("{*}NextContinuationToken")
+
+    def ranges(names: list) -> int:
+        """One HEAD and three Range GETs (first byte, a 1 MiB window, a
+        suffix of 100) of each object, and an If-None-Match GET: 304."""
+        checks = 0
+        for name in names:
+            data, n = objects[name], len(objects[name])
+            st, h, _, _ = send("HEAD", f"/bench/{name}")
+            if st != 200 or int(h["content-length"]) != n:
+                raise AssertionError(f"HEAD {name}: {st} {h}")
+            lo = n // 3
+            for spec, want, first in (("bytes=0-0", data[:1], 0), (f"bytes={lo}-{lo + MiB - 1}", data[lo:lo + MiB], lo),
+                                      ("bytes=-100", data[-100:], n - 100)):
+                st, h2, body, _ = send("GET", f"/bench/{name}", headers={"Range": spec})
+                rng = f"bytes {first}-{first + len(want) - 1}/{n}"
+                if st != 206 or body != want or h2.get("content-range") != rng:
+                    raise AssertionError(f"GET {name} {spec}: {st} {h2.get('content-range')} want {rng}")
+                checks += 1
+            st, _, _, _ = send("GET", f"/bench/{name}", headers={"If-None-Match": h["etag"]})
+            if st != 304:
+                raise AssertionError(f"GET {name} If-None-Match: {st}, want 304")
+            checks += 2
+        return checks
+
+    def delete(names: list) -> int:
+        xml = "".join(f"<Object><Key>{n}</Key></Object>" for n in names)
+        st, _, body, _ = send("POST", "/bench", [("delete", "")], body=f"<Delete>{xml}</Delete>".encode())
+        deleted = body.count(b"<Deleted>")
+        if st != 200 or deleted != len(names) or b"<Error>" in body:
+            raise AssertionError(f"DeleteObjects: {st}, {deleted} deleted of {len(names)}: {body[:300]!r}")
+        return deleted
+
+    def request(method: str, path: str, query=(), headers=None, body=b"", sign=True, tamper=False) -> tuple:
+        st, h, data, _ = send(method, path, query, headers, body, sign=sign, fresh=True, tamper=tamper)
+        return st, h, data[:4096]
+
+    ops = {"register": register, "register_bytes": register_bytes, "put": put, "get": get,
+           "multipart": multipart, "list_v2": list_v2, "ranges": ranges, "delete": delete, "request": request}
+    while True:
+        msg = conn.recv()
+        if msg[0] == "stop":
+            conn.close()
+            return
+        try:
+            conn.send(("ok", ops[msg[0]](*msg[1:])))
+        except Exception as e:  # noqa: BLE001 - sent back and raised in the parent
+            conn.send(("error", f"{type(e).__name__}: {e}\n{traceback.format_exc()}"))
+
+
+class HttpClient:
+    """The parent's handle on the client process: call(op, *args) runs one
+    command there and returns its result, or raises its error here."""
+
+    def __init__(self, endpoint: str):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_client_main, args=(child, endpoint), daemon=True)
+        self._proc.start()
+        child.close()
+
+    def call(self, op: str, *args):
+        self._conn.send((op, *args))
+        status, res = self._conn.recv()
+        if status != "ok":
+            raise AssertionError(f"S3 client {op}: {res}")
+        return res
+
+    def close(self) -> None:
+        try:
+            if self._proc.is_alive():
+                with contextlib.suppress(OSError):
+                    self._conn.send(("stop",))
+            self._proc.join(30)
+        finally:
+            if self._proc.is_alive():
+                self._proc.kill()
+                self._proc.join(10)
+
+
+def _percentile(values: list, q: float) -> float:
+    return float(np.percentile(np.asarray(values), q)) if values else float("nan")
+
+
+def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: dict, rates: dict,
+               n_put: int = 512, n_get_old: int = 512, big_mib: int = 128, part_mib: int = 8,
+               threads: int = HTTP_THREADS, seed: int = 6, degraded_set: int = 0) -> dict:
+    """Phase 5's deployment behind the port's S3Server, driven by signed
+    HTTP from a client process: see the module docstring."""
+    from minio_tpu_torch.api.server import S3Server, ThreadedServer
+    from minio_tpu_torch.control.iam import IAMSys
+
+    layer, old = state.layer, state.traffic
+    new = Traffic(seed, n_put, state.max_size, stem="http")
+    ts = ThreadedServer(S3Server(layer, IAMSys(*HTTP_CREDS), check_skew=True))
+    endpoint = ts.start()
+    client = HttpClient(endpoint)
+    paths = {}
+    clock_keys = ("device_encode_seconds", "device_verify_seconds", "device_recon_seconds",
+                  "batches_run", "small_batches_run", "verify_batches_run", "recon_batches_run")
+
+    def report(path: str, res: dict, n_objects: int, before: dict, direct: list) -> None:
+        """A path's rate, client latency, codec clocks, launches by shape
+        and estimated device time, beside the direct-layer rates."""
+        wall, lat = res["wall"], res["latencies"]
+        after = codec.stats()
+        counts = paths[path]
+        dev_ms = _device_ms(counts, kernels)
+        side = "; ".join(f"{k} {rates[k]['objects_per_s']:.1f} objects/s, {rates[k]['gib_per_s']:.4f} GiB/s"
+                         for k in direct if k in rates)
+        log(f"{path}: {n_objects} objects in {wall:.3f} s, {n_objects / wall:.1f} objects/s, "
+            f"{res['bytes'] / 2**30 / wall:.4f} GiB/s; client latency p50 {_percentile(lat, 50) * 1e3:.1f} ms, "
+            f"p99 {_percentile(lat, 99) * 1e3:.1f} ms over {len(lat)} requests"
+            + (f"; direct layer, same run: {side}" if side else "") + f" [{smi}]")
+        log(f"{path} codec clocks: " + json.dumps({k: round(after[k] - before[k], 4) for k in clock_keys}))
+        log(f"{path}: launches by shape class {json.dumps(_shape_summary(counts))}; device time estimated "
+            f"from them {dev_ms / 1e3:.3f} s of {wall:.3f} s wall ({100 * dev_ms / 1e3 / wall:.2f}%)")
+
+    try:
+        t0 = time.perf_counter()
+        client.call("register", seed, n_put, state.max_size, "http")
+        client.call("register", state.seed, len(old.names), state.max_size, "obj")
+        log(f"http: S3Server at {endpoint}, client process ready in {time.perf_counter() - t0:.2f} s "
+            f"({n_put} new objects, {new.sizes.sum() / MiB:.1f} MiB)")
+
+        # 1. http_put: the new objects, one in 8 REDUCED_REDUNDANCY.
+        rrs = {n: {"x-amz-storage-class": "REDUCED_REDUNDANCY"} for n in new.names if new.storage_class[n]}
+        before = codec.stats()
+        tally.reset()
+        res = client.call("put", new.names, rrs, threads)
+        paths["http_put"] = tally.read("http_put")
+        _no_host_fallback(codec, "http_put")
+        report("http_put", res, n_put, before, ["pools_put_pool1", "pools_put_pool0"])
+
+        # 2. http_get: the new objects and phase 5's survivors in pool 0,
+        # byte-exact. (Pool 1's phase-5 objects lost drive 5's copy to
+        # phase 5's heal_bucket check, which recreates only the bucket
+        # directory: their reads are degraded.)
+        first = set(state.first)
+        survivors = [n for n in state.live if n in first and n not in state.overwritten]
+        olds = survivors[:: max(1, len(survivors) // n_get_old)][:n_get_old]
+        before = codec.stats()
+        tally.reset()
+        res = client.call("get", new.names + olds, threads)
+        paths["http_get"] = tally.read("http_get", need=("hh256",))
+        _no_host_fallback(codec, "http_get")
+        report("http_get", res, n_put + len(olds), before, ["pools_get"])
+        if paths["http_get"]["launches"]["rs_gf_apply"]:
+            raise AssertionError(f"http_get launched rs_gf_apply: {paths['http_get']['rs_gf_apply_by_b_r']}")
+        same = _in_threads(lambda n: layer.get_object("bench", n)[1] == new.data[n], new.names, threads)
+        if not all(same):
+            raise AssertionError(f"layer.get_object of HTTP-PUT objects: {same.count(False)} differ")
+        log(f"http: every HTTP-PUT object reads back byte-identical through layer.get_object ({n_put})")
+
+        # 3. http_big: one aws-chunked PUT, a multipart upload of 8 MiB parts
+        # from 4 threads, both read back.
+        big, mpk = "big/http-put", "big/http-multipart"
+        client.call("register_bytes", big, seed + 1, big_mib * MiB)
+        client.call("register_bytes", mpk, seed + 2, big_mib * MiB)
+        before = codec.stats()
+        tally.reset()
+        res_put = client.call("put", [big], {}, 1)
+        res_mp = client.call("multipart", mpk, part_mib * MiB, 4)
+        res_get = client.call("get", [big, mpk], 1)
+        paths["http_big"] = tally.read("http_big")
+        _no_host_fallback(codec, "http_big")
+        n_parts = res_mp["parts"]
+        if not res_mp["etag"].strip('"').endswith(f"-{n_parts}"):
+            raise AssertionError(f"http_big: multipart ETag {res_mp['etag']}, want -{n_parts}")
+        res = {"wall": res_put["wall"] + res_mp["wall"] + res_get["wall"], "bytes": 4 * big_mib * MiB,
+               "latencies": res_put["latencies"] + res_mp["latencies"] + res_get["latencies"]}
+        for label, r, key in (("aws-chunked PUT", res_put, "put_big"), ("multipart", res_mp, "multipart"),
+                              ("GET of both", res_get, "get_big")):
+            d = rates.get(key)
+            log(f"http_big {label}: {r['bytes'] / 2**30 / r['wall']:.4f} GiB/s"
+                + (f"; direct layer, same run ({key}): {d['gib_per_s']:.4f} GiB/s" if d else "") + f" [{smi}]")
+        report("http_big", res, 4, before, [])
+        log(f"http_big: {big_mib} MiB aws-chunked PUT, {n_parts} x {part_mib} MiB multipart (ETag -{n_parts}), "
+            f"both GET byte-exact")
+
+        # 4. http_degraded_get: the part files of 4 drives of one set of pool 0
+        # removed (2 for a 14+2 object), every object of that set read back.
+        sets0 = state.sets0
+        disks = sets0.sets[degraded_set].disks
+        targets = [n for n in survivors if sets0.get_set_index(n) == degraded_set]
+        lost_drives = (2, 5, 9, 14)
+        removed = 0
+        for name in targets:
+            for i in lost_drives[:2] if old.storage_class[name] else lost_drives:
+                for dirpath, _, files in os.walk(os.path.join(disks[i].root, "bench", name)):
+                    for f in files:
+                        if f.startswith("part."):
+                            os.remove(os.path.join(dirpath, f))
+                            removed += 1
+        before = codec.stats()
+        tally.reset()
+        res = client.call("get", targets, threads)
+        paths["http_degraded_get"] = tally.read("http_degraded_get")
+        _no_host_fallback(codec, "http_degraded_get")
+        report("http_degraded_get", res, len(targets), before, ["pools_degraded_get"])
+        log(f"http_degraded_get: {len(targets)} objects of pool 0's set {degraded_set} byte-exact with "
+            f"{removed} part files of drives {lost_drives} removed")
+
+        # 5. Checks with no rate of their own.
+        by_class = {}
+        for n in new.names:
+            by_class.setdefault(_size_class(len(new.data[n])), n)
+        checks = client.call("ranges", [by_class[c] for c in sorted(by_class)])
+        log(f"http: HEAD, three Range GETs and an If-None-Match 304 on one object of each size class "
+            f"{sorted(by_class)}: {checks} checks ok")
+        listed = client.call("list_v2", "", 1000)
+        own, _, _ = _list_all(layer, "bench", max_keys=1000)
+        if listed["keys"] != own:
+            raise AssertionError(f"ListObjectsV2: {len(listed['keys'])} keys, the layer lists {len(own)}")
+        gone = new.names[: min(128, n_put // 4)]
+        client.call("delete", gone)
+        after_delete = client.call("list_v2", "", 1000)
+        if set(gone) & set(after_delete["keys"]) or len(after_delete["keys"]) != len(own) - len(gone):
+            raise AssertionError("DeleteObjects: deleted keys are still listed")
+        log(f"http: ListObjectsV2 in {listed['pages']} pages of 1,000 equals the layer's listing "
+            f"({len(own)} keys); POST ?delete of {len(gone)} keys, then they are gone from the listing")
+        key = f"/bench/{new.names[-1]}"
+        refusals = {
+            "unsigned GET": (client.call("request", "GET", key, (), None, b"", False), 403, "AccessDenied"),
+            "tampered signature": (client.call("request", "GET", key, (), None, b"", True, True), 403,
+                                   "SignatureDoesNotMatch"),
+        }
+        late = "tenant-00/2024-01-01/http-deadline"
+        refusals["expired deadline PUT"] = (client.call(
+            "request", "PUT", f"/bench/{late}", (), {"X-Mtpu-Deadline": "0.0005"},
+            np.random.default_rng(seed + 3).bytes(512 << 10)), 503, "SlowDownWrite")
+        for label, ((st, _, body), want_st, want_code) in refusals.items():
+            code = ET.fromstring(body).findtext("Code") if body else ""
+            if (st, code) != (want_st, want_code):
+                raise AssertionError(f"{label}: {st} {code}, want {want_st} {want_code}")
+        if client.call("list_v2", late, 1000)["keys"]:
+            raise AssertionError("the PUT refused for its deadline is listed")
+        log("http refusals ok: unsigned GET 403 AccessDenied, tampered signature 403 SignatureDoesNotMatch, "
+            "X-Mtpu-Deadline 0.0005 PUT 503 SlowDownWrite and not listed")
+    finally:
+        client.close()
+        ts.stop()
     return paths
 
 
@@ -1255,17 +1718,21 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     codec = BatchingDeviceCodec(max_batch=64, device=dev)
     tally = Tally()
+    rates: dict = {}
     try:
-        eo, drives, payloads, lost, main_counts = phase_slice(dev, smi, root, codec, tally)
+        eo, drives, payloads, lost, main_counts = phase_slice(dev, smi, root, codec, tally, rates=rates)
         paths = {"put_get_degraded_get": main_counts}
         paths.update(phase_heal(smi, eo, drives, codec, tally, payloads, lost))
-        paths.update(phase_multipart(smi, root, eo, codec, tally))
+        paths.update(phase_multipart(smi, root, eo, codec, tally, rates=rates))
         phase_object_ops(eo, drives)
         paths.update(phase_whole_file(eo, drives, tally))
         log_phase_end("phases 3-4")
         shutil.rmtree(os.path.join(root, "gpu"), ignore_errors=True)
-        paths.update(phase_pools(smi, root, codec, tally, kernels))
+        pool_paths, state = phase_pools(smi, root, codec, tally, kernels, rates=rates)
+        paths.update(pool_paths)
         log_phase_end("phase 5")
+        paths.update(phase_http(smi, state, codec, tally, kernels, rates))
+        log_phase_end("phase 6")
     finally:
         tally.uninstall()
         codec.close()

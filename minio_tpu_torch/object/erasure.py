@@ -40,6 +40,7 @@ from ..storage.types import ErasureInfo, FileInfo, ObjectPartInfo, now
 from ..storage.xlmeta import SMALL_FILE_THRESHOLD
 from ..utils import errors
 from ..utils import bufpool
+from ..utils import deadline
 from ..utils import iopool
 from ..utils.hashes import hash_order
 from . import codec as codec_mod
@@ -1233,6 +1234,12 @@ class ErasureObjects:
         try:
             try:
                 for win in windows:
+                    # Budget check at the window boundary: an expired
+                    # deadline aborts into the cleanup path below (stage
+                    # shards deleted locally, no budget needed), so a slow
+                    # client or slow drives can't stream past the caller's
+                    # patience.
+                    deadline.check("erasure put")
                     blocks = win.blocks()
                     size += len(win)
                     if md5h is not None:
@@ -1610,6 +1617,7 @@ class ErasureObjects:
                     covered.add(covering)
 
             while len(usable) < k and by_future:
+                deadline.check("hedged erasure read")
                 done, _ = _cf.wait(
                     set(by_future), timeout=_HEDGE_POLL,
                     return_when=_cf.FIRST_COMPLETED,

@@ -26,7 +26,7 @@ import os
 import uuid
 
 from ..storage.types import ErasureInfo, FileInfo, ObjectPartInfo, now
-from ..utils import errors
+from ..utils import deadline, errors
 from ..utils.hashes import hash_order
 from . import metadata as meta_mod
 from .erasure import BLOCK_SIZE, META_BUCKET, ErasureObjects
@@ -153,6 +153,9 @@ class MultipartManager:
         try:
             try:
                 for win in windows:
+                    # Deadline expiry aborts into cleanup() below -- stage
+                    # files are deleted, nothing leaks into the upload dir.
+                    deadline.check("upload part")
                     blocks = win.blocks()
                     size += len(win)
                     for b in blocks:

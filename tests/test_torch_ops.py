@@ -486,6 +486,13 @@ def test_import_checks_cover_sets_pools_and_metacache():
         assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
 
 
+def test_import_checks_cover_the_s3_front():
+    mods = _port_modules()
+    for m in ("api.server", "api.auth", "control.iam", "utils.deadline"):
+        assert f"minio_tpu_torch.{m}" in mods
+        assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"
