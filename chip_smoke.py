@@ -129,8 +129,45 @@ Phases, each of which raises on failure (the script then exits non-zero):
    codec's device_* clocks, the launches by shape and the device time they
    take at phase 2's times, beside phase 3-5's direct-layer rates of the
    same run. No work may reach the host codec or a plain version.
+   The always-on planes are read around each path (Planes): the stage
+   ledger and the copy ledger are reset before it; after it the script
+   prints each (layer, stage)'s count, p50, p99, wall and cpu sums, the
+   copies per payload byte on each hop and the degrade records, and holds
+   one api root span per request the client sent and one codec verify-batch
+   record per object frame-parse record. The expired-deadline PUT must
+   record one deadline abort. One signed PUT and one GET of a 4 MiB object
+   run with a GLOBAL_TRACE subscriber: each must be one span tree keyed by
+   its x-amz-request-id, with api, object and erasure spans. The continuous
+   profiler stays off.
+7. The fault plane on the card, on a fresh 16-drive 12+4 set whose drives
+   are MeteredDrive(HealthGatedDrive(FaultyDisk(LocalDrive))), the stack
+   dist/node.py builds, sharing the phase's codec; the launch tally is reset
+   before each step and read after (both kernels must launch in each):
+   - 7a: PUT 8 x 16 MiB and 128 objects of phase 5's size law from 16
+     threads, GET each byte-exact, print the rates beside phases 3 and 5,
+     the metered per-API latency EWMAs and the stage ledger; then a second
+     GET pass with the continuous profiler on: gil_load, the share of
+     samples by thread role and that pass's rate;
+   - 7b: a seeded bitrot fault on one drive's writes while 16 x 4 MiB
+     objects are PUT; every GET is byte-exact (hh256 drops the flipped
+     shard, rs_gf_apply rebuilds it), heal_object rewrites it, and a GET
+     with 4 other drives' part files removed is byte-exact;
+   - 7c: drive-error on 2 drives: each breaker opens after 5 consecutive
+     errors and the drive reads offline; 16 PUTs and 32 GETs are byte-exact
+     (the GETs rebuild on the card); once disarmed, each breaker re-closes
+     through its probe within max_cooldown; the degrade records and
+     DriveBusy sheds are printed as they come;
+   - 7d: four spawned processes, each on its own 16-drive set on the card,
+     PUT an object, arm MTPU_CRASH through chaos.crash.arm_from_env and die
+     with rc 137 at put.mid-commit:kill:8, put.mid-commit:kill:13,
+     storage.append-iov.torn:torn-kill and multipart.complete.partial:kill;
+     the parent runs recover_drive on every drive and recover_set, heals
+     what it is handed, and holds the invariant: the victim is absent or
+     byte-exact, no stage debris is left, and the acknowledged object reads
+     byte-exact with 4 drives' part files removed.
 
-The line before the last is a JSON object describing each kernel; the last
+The line before the last is a JSON object describing each kernel, with its
+launches by path (phase 7's steps included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 """
@@ -143,6 +180,7 @@ import contextlib
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1316,6 +1354,94 @@ def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objec
     return paths, state
 
 
+# -- the observability planes (phases 6 and 7) -----------------------------------------------
+
+API_CHILD_SPANS = ("auth", "body-read", "response-write")
+
+
+class Planes:
+    """The port's always-on planes around one path: reset() zeroes the stage
+    ledger and the copy ledger and notes the degrade counters; read() prints
+    the per-stage table (count, p50, p99, wall and cpu sums), the copies per
+    payload byte on each hop and the degrade deltas, and holds the checks:
+    one api root span per request the client sent, and one codec
+    verify-batch record per object frame-parse record."""
+
+    def __init__(self):
+        from minio_tpu_torch.control.degrade import GLOBAL_DEGRADE
+        from minio_tpu_torch.control.perf import GLOBAL_PERF, summarize
+        from minio_tpu_torch.control.profiler import GLOBAL_PROFILER
+
+        self.ledger, self.copy, self.degrade = GLOBAL_PERF.ledger, GLOBAL_PROFILER.copy, GLOBAL_DEGRADE
+        self.summarize = summarize
+        self._deg0 = GLOBAL_DEGRADE.snapshot()
+
+    def reset(self) -> None:
+        self.ledger.reset()
+        self.copy.reset()
+        self._deg0 = self.degrade.snapshot()
+
+    def degrade_delta(self) -> dict:
+        now = self.degrade.snapshot()
+        out = {k: now[k] - self._deg0[k] for k in ("hedge_launched", "hedge_wins", "breaker_trips",
+                                                    "breaker_closes")}
+        for key in ("deadline_aborts", "sheds"):
+            out[key] = {k: v - self._deg0[key].get(k, 0) for k, v in now[key].items()
+                        if v - self._deg0[key].get(k, 0)}
+        return out
+
+    def _settled(self) -> dict:
+        """The ledger once a straggling hedged read has landed: its verify
+        and frame-parse records close moments after the response."""
+        snap = self.ledger.snapshot()
+        for _ in range(50):
+            time.sleep(0.1)
+            again = self.ledger.snapshot()
+            if again == snap:
+                break
+            snap = again
+        return snap
+
+    def read(self, path: str, n_requests: int | None, payload_bytes: int, smi: str) -> None:
+        summ = self.summarize(self._settled())
+        rows = []
+        for layer in sorted(summ):
+            for stage in sorted(summ[layer]):
+                s = summ[layer][stage]
+                rows.append({"layer": layer, "stage": stage, "count": s["count"], "p50_ms": s["p50_ms"],
+                             "p99_ms": s["p99_ms"], "wall_s": round(s["total_ms"] / 1e3, 4),
+                             "cpu_s": round(s["cpu_seconds"], 4)})
+        log(f"{path} stage ledger [{smi}]: " + json.dumps(rows))
+        hops = self.copy.snapshot()["hops"]
+        per_byte = {hop: {"copied": round(h["copied_bytes"] / payload_bytes, 4),
+                          "moved": round(h["moved_bytes"] / payload_bytes, 4)}
+                    for hop, h in sorted(hops.items())} if payload_bytes else {}
+        log(f"{path} copies per payload byte ({payload_bytes} bytes): " + json.dumps(per_byte))
+        deg = self.degrade_delta()
+        log(f"{path} degrade records: " + json.dumps(deg))
+        count = {(r["layer"], r["stage"]): r["count"] for r in rows}
+        roots = sum(c for (layer, stage), c in count.items() if layer == "api" and stage not in API_CHILD_SPANS)
+        if n_requests is not None and roots != n_requests:
+            raise AssertionError(f"{path}: {roots} api root spans, the client sent {n_requests} requests")
+        fp, vb = count.get(("object", "frame-parse"), 0), count.get(("codec", "verify-batch"), 0)
+        if fp != vb:
+            raise AssertionError(f"{path}: {fp} object/frame-parse records, {vb} codec/verify-batch records")
+
+
+def _trace_tree(records: list, request_id: str) -> dict:
+    """One request's span tree from GLOBAL_TRACE records: raises unless the
+    trace has exactly one root and every span hangs under it."""
+    spans = [r for r in records if r.get("type") == "span" and r.get("trace") == request_id]
+    ids = {r["span"] for r in spans}
+    roots = [r for r in spans if r["parent"] == ""]
+    orphans = [r["name"] for r in spans if r["parent"] and r["parent"] not in ids]
+    if len(roots) != 1 or orphans:
+        raise AssertionError(f"trace {request_id}: {len(roots)} roots, spans with no parent in the tree {orphans}")
+    layers = collections.Counter(r["layer"] for r in spans)
+    names = collections.Counter(r["name"] for r in spans)
+    return {"root": roots[0]["name"], "spans": len(spans), "layers": dict(layers), "names": dict(names)}
+
+
 # -- phase 6: the S3 HTTP front -------------------------------------------------------------
 
 HTTP_CREDS = ("chipsmoke", "chip-smoke-secret-key")
@@ -1551,8 +1677,10 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
     HTTP from a client process: see the module docstring."""
     from minio_tpu_torch.api.server import S3Server, ThreadedServer
     from minio_tpu_torch.control.iam import IAMSys
+    from minio_tpu_torch.control.pubsub import GLOBAL_TRACE
 
     layer, old = state.layer, state.traffic
+    planes = Planes()
     new = Traffic(seed, n_put, state.max_size, stem="http")
     ts = ThreadedServer(S3Server(layer, IAMSys(*HTTP_CREDS), check_skew=True))
     endpoint = ts.start()
@@ -1586,10 +1714,48 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
             f"({n_put} new objects, {new.sizes.sum() / MiB:.1f} MiB)")
 
         # 1. http_put: the new objects, one in 8 REDUCED_REDUNDANCY.
+        # One signed PUT and one GET of a 4 MiB object with a GLOBAL_TRACE
+        # subscriber: each is one span tree keyed by its x-amz-request-id.
+        traced = "trace/put-4mib"
+        body = np.random.default_rng(seed + 4).bytes(4 * MiB)
+        q = GLOBAL_TRACE.subscribe()
+        try:
+            st_put, h_put, _ = client.call("request", "PUT", f"/bench/{traced}", (), None, body)
+            # Lose the part files of the drives holding data rows 1-4, so
+            # the GET rebuilds them and its tree has the codec's span too.
+            for p_i, d_i in _holders(layer, traced):
+                drive = layer.pools[p_i].disks[d_i]
+                if drive.read_version("bench", traced).erasure.index <= 4:
+                    _remove_parts_of(drive, traced)
+            st_get, h_get, head = client.call("request", "GET", f"/bench/{traced}")
+            time.sleep(0.5)
+        finally:
+            GLOBAL_TRACE.unsubscribe(q)
+        if (st_put, st_get) != (200, 200) or head != body[:len(head)]:
+            raise AssertionError(f"traced PUT/GET: {st_put} {st_get}")
+        records = []
+        while not q.empty():
+            records.append(q.get_nowait())
+        # A streamed GET sends its headers before the request id is stamped
+        # (as the JAX front does), so its trace is found by its root span:
+        # the trace id is the request id either way.
+        get_ids = [r["trace"] for r in records if r.get("type") == "span" and r["parent"] == ""
+                   and r["name"] == "GetObject" and r.get("path") == f"/bench/{traced}"]
+        if len(get_ids) != 1:
+            raise AssertionError(f"traced GET: {len(get_ids)} GetObject root spans")
+        for label, rid in (("PUT", h_put["x-amz-request-id"]), ("GET", get_ids[0])):
+            tree = _trace_tree(records, rid)
+            if not {"api", "object", "erasure"} <= set(tree["layers"]):
+                raise AssertionError(f"traced {label}: layers {tree['layers']}")
+            log(f"http trace {label} 4 MiB (request id {rid}): one tree of {tree['spans']} spans, root "
+                f"{tree['root']}, layers {json.dumps(tree['layers'])}, spans {json.dumps(tree['names'])}")
+
         rrs = {n: {"x-amz-storage-class": "REDUCED_REDUNDANCY"} for n in new.names if new.storage_class[n]}
         before = codec.stats()
+        planes.reset()
         tally.reset()
         res = client.call("put", new.names, rrs, threads)
+        planes.read("http_put", len(res["latencies"]), res["bytes"], smi)
         paths["http_put"] = tally.read("http_put")
         _no_host_fallback(codec, "http_put")
         report("http_put", res, n_put, before, ["pools_put_pool1", "pools_put_pool0"])
@@ -1602,8 +1768,10 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
         survivors = [n for n in state.live if n in first and n not in state.overwritten]
         olds = survivors[:: max(1, len(survivors) // n_get_old)][:n_get_old]
         before = codec.stats()
+        planes.reset()
         tally.reset()
         res = client.call("get", new.names + olds, threads)
+        planes.read("http_get", len(res["latencies"]), res["bytes"], smi)
         paths["http_get"] = tally.read("http_get", need=("hh256",))
         _no_host_fallback(codec, "http_get")
         report("http_get", res, n_put + len(olds), before, ["pools_get"])
@@ -1620,10 +1788,14 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
         client.call("register_bytes", big, seed + 1, big_mib * MiB)
         client.call("register_bytes", mpk, seed + 2, big_mib * MiB)
         before = codec.stats()
+        planes.reset()
         tally.reset()
         res_put = client.call("put", [big], {}, 1)
         res_mp = client.call("multipart", mpk, part_mib * MiB, 4)
         res_get = client.call("get", [big, mpk], 1)
+        planes.read(
+            "http_big", len(res_put["latencies"]) + len(res_mp["latencies"]) + len(res_get["latencies"]),
+            4 * big_mib * MiB, smi)
         paths["http_big"] = tally.read("http_big")
         _no_host_fallback(codec, "http_big")
         n_parts = res_mp["parts"]
@@ -1655,8 +1827,10 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
                             os.remove(os.path.join(dirpath, f))
                             removed += 1
         before = codec.stats()
+        planes.reset()
         tally.reset()
         res = client.call("get", targets, threads)
+        planes.read("http_degraded_get", len(res["latencies"]), res["bytes"], smi)
         paths["http_degraded_get"] = tally.read("http_degraded_get")
         _no_host_fallback(codec, "http_degraded_get")
         report("http_degraded_get", res, len(targets), before, ["pools_degraded_get"])
@@ -1688,9 +1862,14 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
                                    "SignatureDoesNotMatch"),
         }
         late = "tenant-00/2024-01-01/http-deadline"
+        planes.reset()
         refusals["expired deadline PUT"] = (client.call(
             "request", "PUT", f"/bench/{late}", (), {"X-Mtpu-Deadline": "0.0005"},
             np.random.default_rng(seed + 3).bytes(512 << 10)), 503, "SlowDownWrite")
+        aborts = planes.degrade_delta()["deadline_aborts"]
+        if sum(aborts.values()) != 1:
+            raise AssertionError(f"the expired-deadline PUT recorded deadline aborts {aborts}, want one")
+        log(f"http: the expired-deadline PUT recorded one deadline abort {json.dumps(aborts)}")
         for label, ((st, _, body), want_st, want_code) in refusals.items():
             code = ET.fromstring(body).findtext("Code") if body else ""
             if (st, code) != (want_st, want_code):
@@ -1702,6 +1881,302 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
     finally:
         client.close()
         ts.stop()
+    return paths
+
+
+# -- phase 7: the fault plane on the card ---------------------------------------------------
+
+P7_THREADS = 16
+BITROT_DRIVE, BREAKER_DRIVES, P7_OTHERS = 5, (2, 9), (0, 4, 8, 12)
+CRASH_SPECS = (
+    "put.mid-commit:kill:8",
+    "put.mid-commit:kill:13",
+    "storage.append-iov.torn:torn-kill",
+    "multipart.complete.partial:kill",
+)
+
+
+def _drive_name(i: int) -> str:
+    return f"drive{i:02d}"  # zero-padded: a fault's target substring names one drive
+
+
+def _fault_set(root: str, codec, wrap: bool = True):
+    """A 16-drive 12+4 set with a bucket "bench", made under `root` or
+    opened there again (the restart); with `wrap`, each drive is the stack
+    Node builds, MeteredDrive(HealthGatedDrive(FaultyDisk(LocalDrive)))."""
+    from minio_tpu_torch.chaos.disk import FaultyDisk
+    from minio_tpu_torch.object.erasure import ErasureObjects
+    from minio_tpu_torch.storage import format as fmt
+    from minio_tpu_torch.storage.breaker import HealthGatedDrive
+    from minio_tpu_torch.storage.local import LocalDrive
+    from minio_tpu_torch.storage.metered import MeteredDrive
+
+    fresh = not os.path.isdir(root)
+    drives = []
+    for i, f in enumerate(fmt.init_format(1, DRIVES)):
+        d = os.path.join(root, _drive_name(i))
+        if fresh:
+            os.makedirs(d)
+            f.save(d)
+        drive = LocalDrive(d)
+        drives.append(MeteredDrive(HealthGatedDrive(FaultyDisk(drive))) if wrap else drive)
+    eo = ErasureObjects(drives, parity=M, codec=codec)
+    if fresh:
+        eo.make_bucket("bench")
+    return eo, drives
+
+
+def _remove_parts_of(drive, name: str) -> int:
+    removed = 0
+    for dirpath, _, files in os.walk(os.path.join(drive.root, "bench", name)):
+        for f in files:
+            if f.startswith("part."):
+                os.remove(os.path.join(dirpath, f))
+                removed += 1
+    return removed
+
+
+def _remove_parts(drives, indices, name: str) -> int:
+    return sum(_remove_parts_of(drives[i], name) for i in indices)
+
+
+def _crash_payloads(big_mib: int) -> dict:
+    rng = np.random.default_rng(70)
+    return {"acked": rng.bytes(big_mib * MiB), "victim": rng.bytes(big_mib * MiB + 37),
+            "part1": rng.bytes(5 * MiB), "part2": rng.bytes(MiB + 37)}
+
+
+def _crash_child(root: str, spec: str, device: str, big_mib: int) -> None:
+    """A process that dies at a crash point: it PUTs (and so acknowledges)
+    one object, arms MTPU_CRASH through chaos.crash.arm_from_env, then PUTs
+    the victim (a multipart upload for a multipart point) and must die
+    there. Exit code 3 means the point never fired."""
+    from minio_tpu_torch.chaos import crash
+    from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
+
+    codec = BatchingDeviceCodec(max_batch=64, device=device)
+    eo, _ = _fault_set(root, codec, wrap=False)
+    data = _crash_payloads(big_mib)
+    eo.put_object("bench", "acked", data["acked"])
+    os.environ["MTPU_CRASH"] = spec
+    crash.arm_from_env()
+    if spec.startswith("multipart."):
+        mp = eo.multipart
+        uid = mp.new_multipart_upload("bench", "victim")
+        parts = [(n, mp.put_object_part("bench", "victim", uid, n, data[f"part{n}"]).etag) for n in (1, 2)]
+        mp.complete_multipart_upload("bench", "victim", uid, parts)
+    else:
+        eo.put_object("bench", "victim", data["victim"])
+    os._exit(3)
+
+
+def _debris(root: str) -> list[str]:
+    """Stage debris left under a drive: tmp entries, pid-scoped stage files
+    and atomic-write .tmp files."""
+    out = []
+    tmp = os.path.join(root, ".minio_tpu.sys", "tmp")
+    if os.path.isdir(tmp):
+        out += [os.path.join(tmp, n) for n in os.listdir(tmp)]
+    for dirpath, _, files in os.walk(root):
+        out += [os.path.join(dirpath, f) for f in files if ".tmp." in f or re.search(r"\.tmp[0-9a-f]{8}$", f)]
+    return out
+
+
+def phase_crash(root: str, codec, tally: Tally, device: str = "cuda", crash_mib: int = 4) -> dict:
+    """7d: four spawned processes die at crash points; the restart scan
+    recovers their drives (see the module docstring)."""
+    import multiprocessing as mp
+
+    from minio_tpu_torch.storage import recovery
+    from minio_tpu_torch.utils import errors
+
+    ctx = mp.get_context("spawn")
+    roots = [os.path.join(root, f"crash{j}") for j in range(len(CRASH_SPECS))]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_crash_child, args=(r, spec, device, crash_mib), daemon=True)
+             for r, spec in zip(roots, CRASH_SPECS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if codes != [137] * len(procs):
+        raise AssertionError(f"7d: crash children exited {codes}, want 137 each")
+    log(f"7d: {len(procs)} children died with rc 137 at {list(CRASH_SPECS)} in {time.perf_counter() - t0:.1f} s")
+    data = _crash_payloads(crash_mib)
+    tally.reset()
+    recovery.reset_counters()
+    for r, spec in zip(roots, CRASH_SPECS):
+        ceo, cdrives = _fault_set(r, codec, wrap=False)
+        scans = collections.Counter()
+        for d in cdrives:
+            scans.update(recovery.recover_drive(d))
+        handed = []
+        delta = recovery.recover_set(ceo, heal=lambda b, o, v: handed.append((b, o, v)))
+        for b, o, v in handed:
+            ceo.heal_object(b, o, version_id=v)
+        try:
+            got = ceo.get_object("bench", "victim")[1]
+        except errors.ObjectNotFound:
+            got = None
+        want = data["part1"] + data["part2"] if spec.startswith("multipart.") else data["victim"]
+        if got is not None and got != want:
+            raise AssertionError(f"7d {spec}: the victim reads back but differs")
+        debris = [p for d in cdrives for p in _debris(d.root)]
+        if debris:
+            raise AssertionError(f"7d {spec}: debris left after recovery: {debris[:8]}")
+        _remove_parts(cdrives, P7_OTHERS, "acked")
+        if ceo.get_object("bench", "acked")[1] != data["acked"]:
+            raise AssertionError(f"7d {spec}: the acknowledged object differs")
+        log(f"7d {spec}: victim {'absent (rolled back)' if got is None else 'byte-exact'}; recover_drive "
+            f"{json.dumps({k: v for k, v in scans.items() if v})}; recover_set {json.dumps(delta)}; healed "
+            f"{len(handed)}; no debris; the acknowledged object byte-exact with drives {P7_OTHERS} lost")
+    counts = tally.read("faults_crash_recovery")
+    log(f"7d recovery counters: {json.dumps(recovery.counters())}")
+    return counts
+
+
+def phase_faults(smi: str, root: str, codec, tally: Tally, rates: dict, device: str = "cuda",
+                 n_small: int = 128, big_mib: int = 16, n_big: int = 8, rot_mib: int = 4, n_rot: int = 16,
+                 crash_mib: int = 4, small_max: int = 4 * MiB, threads: int = P7_THREADS) -> dict:
+    """The fault plane on the card: see the module docstring."""
+    from minio_tpu_torch.chaos import faults
+    from minio_tpu_torch.control.profiler import GLOBAL_PROFILER, thread_role
+    from minio_tpu_torch.storage import breaker
+    from minio_tpu_torch.utils import errors
+
+    paths = {}
+    planes = Planes()
+    base = os.path.join(root, "faults")
+    eo, drives = _fault_set(base, codec)
+
+    # 7a. The drive stack Node builds.
+    rng = np.random.default_rng(71)
+    traffic = Traffic(72, n_small, small_max, stem="p7")
+    objects = {f"p7/big-{i}": memoryview(rng.bytes(big_mib * MiB)) for i in range(n_big)}
+    objects.update(traffic.data)
+    names = list(objects)
+    nbytes = sum(len(v) for v in objects.values())
+    tally.reset()
+    planes.reset()
+    t0 = time.perf_counter()
+    _in_threads(lambda n: eo.put_object("bench", n, objects[n]), names, threads)
+    put_s = time.perf_counter() - t0
+
+    def get_all(label: str) -> float:
+        t = time.perf_counter()
+        same = _in_threads(lambda n: eo.get_object("bench", n)[1] == objects[n], names, threads)
+        if not all(same):
+            raise AssertionError(f"{label}: {same.count(False)} objects differ")
+        return time.perf_counter() - t
+
+    get_s = get_all("7a GET")
+    side = "; ".join(f"{k} {rates[k]['objects_per_s']:.1f} objects/s, {rates[k]['gib_per_s']:.4f} GiB/s"
+                     for k in ("put_big", "get_big", "pools_put_pool0", "pools_get") if k in rates)
+    log(f"7a drive stack: PUT {len(names)} objects ({nbytes / MiB:.1f} MiB) {len(names) / put_s:.1f} objects/s, "
+        f"{nbytes / 2**30 / put_s:.4f} GiB/s; GET {len(names) / get_s:.1f} objects/s, "
+        f"{nbytes / 2**30 / get_s:.4f} GiB/s; direct layer, same run: {side} [{smi}]")
+    ewma: dict = {}
+    for d in drives:
+        for api, rec in d.api_latencies().items():
+            ewma.setdefault(api, []).append(rec)
+    log("7a metered per-API latency EWMA over 16 drives (ms min/median/max, calls, errors): " + json.dumps({
+        api: [round(min(r["ewma_ms"] for r in v), 3), round(float(np.median([r["ewma_ms"] for r in v])), 3),
+              round(max(r["ewma_ms"] for r in v), 3), sum(r["count"] for r in v), sum(r["errors"] for r in v)]
+        for api, v in sorted(ewma.items())}))
+    planes.read("7a drive stack (PUT and GET)", None, nbytes, smi)
+    if not GLOBAL_PROFILER.ensure_started():
+        raise AssertionError("the continuous profiler did not start (MTPU_PROFILE=0?)")
+    try:
+        get2_s = get_all("7a GET with the profiler on")
+        time.sleep(1.0)  # the GIL probe calibrates on its first ticks
+        summary = GLOBAL_PROFILER.summary()
+    finally:
+        GLOBAL_PROFILER.stop()
+    samples = sum(summary["roles"].values()) or 1
+    shares = {role: round(n / samples, 4) for role, n in sorted(summary["roles"].items(), key=lambda kv: -kv[1])}
+    log(f"7a profiler on: GET {len(names) / get2_s:.1f} objects/s, {nbytes / 2**30 / get2_s:.4f} GiB/s "
+        f"(off: {nbytes / 2**30 / get_s:.4f} GiB/s); gil_load {summary['gil_load']}; sampler overhead "
+        f"{summary['sampler_overhead_ratio']}; role shares {json.dumps(shares)} [{smi}]")
+    roles = {thread_role(n) for n in ("encode-batch-12-4", "encode-batch-small-12-4", "drive-io-lane_0",
+                                      "put-stager", "get-stager", "etag-md5", "drive-io_3")}
+    if "other" in roles:
+        raise AssertionError(f"a port thread name maps to no profiler role: {roles}")
+    paths["faults_drive_stack"] = tally.read("faults_drive_stack")
+
+    # 7b. Bitrot on one drive's writes: caught by hh256 on GET, rebuilt by rs_gf_apply.
+    rot = {f"p7/rot-{i}": rng.bytes(rot_mib * MiB) for i in range(n_rot)}
+    fid = faults.REGISTRY.arm(faults.FaultSpec(kind="bitrot", target=_drive_name(BITROT_DRIVE), seed=73))
+    try:
+        _in_threads(lambda n: eo.put_object("bench", n, rot[n]), list(rot), threads)
+    finally:
+        injected = faults.REGISTRY.injected_counts()
+        faults.REGISTRY.disarm(fid)
+    tally.reset()
+    same = _in_threads(lambda n: eo.get_object("bench", n)[1] == rot[n], list(rot), threads)
+    if not all(same):
+        raise AssertionError(f"7b GET over bitrot: {same.count(False)} objects differ")
+    paths["faults_bitrot_get"] = counts = tally.read("faults_bitrot_get")
+    log(f"7b bitrot: {json.dumps({f'{k[0]}@{k[1]}': v for k, v in injected.items()})} writes flipped on "
+        f"{_drive_name(BITROT_DRIVE)}; {n_rot} GETs byte-exact, rs_gf_apply rebuilt in "
+        f"{counts['launches']['rs_gf_apply']} launches")
+    tally.reset()
+    healed = [eo.heal_object("bench", n) for n in rot]
+    removed = sum(_remove_parts(drives, P7_OTHERS, n) for n in rot)
+    same = [eo.get_object("bench", n)[1] == rot[n] for n in rot]
+    if not all(same):
+        raise AssertionError(f"7b GET after heal with drives {P7_OTHERS} lost: {same.count(False)} differ")
+    paths["faults_bitrot_heal"] = tally.read("faults_bitrot_heal")
+    rewritten = sum(1 for h in healed if h.disks_healed)
+    log(f"7b heal rewrote the flipped shard of {rewritten} of {n_rot} objects; GET byte-exact with "
+        f"{removed} part files of drives {P7_OTHERS} removed")
+
+    # 7c. Two drives fail every call: their breakers open, PUT and GET go on.
+    planes.reset()
+    fids = [faults.REGISTRY.arm(faults.FaultSpec(kind="drive-error", target=_drive_name(i), probability=1.0))
+            for i in BREAKER_DRIVES]
+    more = {f"p7/breaker-{i}": rng.bytes(rot_mib * MiB) for i in range(n_rot)}
+    try:
+        for i in BREAKER_DRIVES:
+            br = drives[i].breaker
+            for _ in range(br.error_threshold):
+                try:
+                    drives[i].disk_info()
+                except errors.FaultyDisk:
+                    pass
+            if br.state != breaker.OPEN or drives[i].is_online():
+                raise AssertionError(f"7c: {_drive_name(i)} breaker {br.snapshot()}, online {drives[i].is_online()}")
+        tally.reset()
+        _in_threads(lambda n: eo.put_object("bench", n, more[n]), list(more), threads)
+        check = {**more, **{n: objects[n] for n in names[: 2 * n_rot]}}
+        same = _in_threads(lambda n: eo.get_object("bench", n)[1] == check[n], list(check), threads)
+        if not all(same):
+            raise AssertionError(f"7c GET with two breakers open: {same.count(False)} differ")
+        paths["faults_breaker"] = tally.read("faults_breaker")
+    finally:
+        for f in fids:
+            faults.REGISTRY.disarm(f)
+    t0 = time.perf_counter()
+    while any(drives[i].breaker.state != breaker.CLOSED for i in BREAKER_DRIVES):
+        if time.perf_counter() - t0 > drives[0].breaker.max_cooldown * 1.1 + 1:
+            raise AssertionError("7c: a breaker did not re-close within max_cooldown: "
+                                 + json.dumps([drives[i].breaker.snapshot() for i in BREAKER_DRIVES]))
+        time.sleep(0.05)
+    closed_s = time.perf_counter() - t0
+    deg = planes.degrade_delta()
+    log(f"7c breakers: {[_drive_name(i) for i in BREAKER_DRIVES]} opened after "
+        f"{drives[BREAKER_DRIVES[0]].breaker.error_threshold} errors each, {len(more)} PUTs and {len(check)} GETs "
+        f"byte-exact with both offline, both re-closed by their probe {closed_s:.2f} s after the faults were "
+        f"disarmed; degrade records {json.dumps(deg)}; DriveBusy sheds {deg['sheds'].get('drive', 0)}")
+    for d in drives:
+        d.breaker.close()
+
+    paths["faults_crash_recovery"] = phase_crash(root, codec, tally, device, crash_mib)
+    shutil.rmtree(base, ignore_errors=True)
     return paths
 
 
@@ -1733,6 +2208,11 @@ def main() -> int:
         log_phase_end("phase 5")
         paths.update(phase_http(smi, state, codec, tally, kernels, rates))
         log_phase_end("phase 6")
+        del state
+        for d in ("pool0", "pool1"):
+            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+        paths.update(phase_faults(smi, root, codec, tally, rates))
+        log_phase_end("phase 7")
     finally:
         tally.uninstall()
         codec.close()

@@ -13,11 +13,10 @@ worker thread via asyncio.to_thread so the event loop only does protocol work
 This is the JAX package's api/server.py over the port's ServerPools: the
 same routing, handlers, admission gate, CORS, RFC 7232 conditionals,
 streaming PUT and streaming GET plan, with the same bytes on the wire and
-on the drives. The JAX package's instrumentation hooks are left out (the
-request root span and its child spans, the ops/s ring, the degrade records
-and the copy-ledger hops; ROADMAP.md, Queue A item 5), its logger is the
-standard `logging` module, and the routes whose modules are not ported
-yet answer NotImplemented from `_not_ported` (Queue A item 8).
+on the drives, and the same instrumentation hooks: the request root span
+and its child spans, the ops/s ring, the degrade records, the copy-ledger
+hops and GLOBAL_LOGGER. The routes whose modules are not ported yet answer
+NotImplemented from `_not_ported` (ROADMAP.md, Queue A item 8).
 """
 
 from __future__ import annotations
@@ -40,10 +39,15 @@ from aiohttp import web
 
 from ..control.bucket_meta import BucketMetadataSys
 from ..control.compress import META_ACTUAL_SIZE
+from ..control.degrade import GLOBAL_DEGRADE
+from ..control.logging import GLOBAL_LOGGER
+from ..control.perf import GLOBAL_PERF, op_class
 from ..control import objectlock as ol
 from ..control import tiering as tiering_mod
 from ..control.iam import IAMSys
 from ..control import policy as policy_mod
+from ..control import tracing
+from ..control.profiler import COPIED, GLOBAL_PROFILER, MOVED
 from ..object.pools import ServerPools
 from ..object.types import (
     DeleteObjectOptions,
@@ -56,6 +60,7 @@ from ..utils import errors as oerr
 from . import zipext
 from .auth import SigV4Verifier, UNSIGNED_PAYLOAD
 from .errors import S3Error, from_object_error
+from ..control.sanitizer import san_lock
 
 _log = logging.getLogger(__name__)
 
@@ -161,6 +166,8 @@ class _RequestBodyReader:
         take = min(n, len(self._chunk) - self._pos)
         data = self._chunk[self._pos : self._pos + take]
         self._pos += take
+        # Copy-ledger hop: slicing materializes a fresh bytes object.
+        GLOBAL_PROFILER.copy.record("socket-read", COPIED, len(data))
         return data
 
     def readinto(self, dest) -> int:
@@ -172,6 +179,9 @@ class _RequestBodyReader:
         take = min(len(dest), len(self._chunk) - self._pos)
         dest[:take] = self._chunk[self._pos : self._pos + take]
         self._pos += take
+        # Copy-ledger hop: the socket chunk lands once in the caller's
+        # (pooled) buffer and is passed along as views from here on.
+        GLOBAL_PROFILER.copy.record("socket-read", MOVED, take)
         return take
 
 
@@ -360,9 +370,7 @@ class S3Server:
         # every one of them times out. 0 disables the gate.
         self._max_requests = int(_os.environ.get("MTPU_API_REQUESTS_MAX", "512"))
         self._inflight = 0
-        self._inflight_lock = threading.Lock()
-        self._logged_once: set[str] = set()
-        self._logged_once_lock = threading.Lock()
+        self._inflight_lock = san_lock("S3Server._inflight_lock")
         self.app = web.Application(client_max_size=MAX_OBJECT_SIZE)
         self.app.router.add_route("*", "/{tail:.*}", self._entry)
         # Hooks filled in by the control plane (events, metrics, trace).
@@ -377,14 +385,6 @@ class S3Server:
         self.tiering = None  # TierConfigMgr (tier.go / bucket-lifecycle.go role)
 
     # -- plumbing -------------------------------------------------------------
-
-    def _log_once(self, message: str, key: str) -> None:
-        """Log an error once per key (the JAX logger's log_once)."""
-        with self._logged_once_lock:
-            if key in self._logged_once:
-                return
-            self._logged_once.add(key)
-        _log.error(message)
 
     def _conditional_response(
         self, request: web.Request, oi, bucket: str, key: str
@@ -426,6 +426,16 @@ class S3Server:
         bucket, key = self._split_path(request)
         api_name = _api_name(request.method, bucket, key, request.rel_url.query)
         is_write = request.method in ("PUT", "POST", "DELETE")
+        # The request root span: trace id == x-amz-request-id, so trace and
+        # audit records join on one key. No-op when nobody subscribes.
+        root = tracing.root_span(
+            api_name,
+            "api",
+            request_id,
+            sys=self.trace,
+            method=request.method,
+            path=request.path,
+        )
         # Admission gate BEFORE any work: an overloaded node answers in
         # microseconds so clients back off onto healthier nodes.
         admitted = True
@@ -436,6 +446,7 @@ class S3Server:
                 else:
                     self._inflight += 1
         if not admitted:
+            GLOBAL_DEGRADE.record_shed("write" if is_write else "read")
             shed = S3Error(
                 "SlowDownWrite" if is_write else "SlowDownRead",
                 resource=f"/{bucket}/{key}" if bucket else "/",
@@ -443,14 +454,21 @@ class S3Server:
             resp = _xml(shed.to_xml(request_id), shed.api.http_status)
             resp.headers["x-amz-request-id"] = request_id
             resp.headers["Retry-After"] = "1"
+            with root:
+                root.set(status=resp.status, shed=True)
             if self.metrics is not None:
                 self.metrics.record_http(request.method, resp.status)
+            # Shed requests land in the ops/s ring as errors: a dashboard
+            # reading QPS during an overload must see the refusals.
+            GLOBAL_PERF.timeseries.record(
+                op_class(api_name), _time.perf_counter() - t0, ok=False
+            )
             return resp
         # The client's remaining budget (X-Mtpu-Deadline, seconds) binds the
         # whole dispatch: every internal RPC below inherits and decrements it.
         dl = deadline.bind_header(request.headers.get(deadline.DEADLINE_HEADER))
         try:
-            with dl:
+            with root, dl:
                 try:
                     resp = await self._dispatch(request, request_id)
                 except S3Error as e:
@@ -468,6 +486,7 @@ class S3Server:
                     else:
                         s3e = S3Error("InvalidArgument", str(e))
                     resp = _xml(s3e.to_xml(request_id), s3e.api.http_status)
+                root.set(status=resp.status)
         finally:
             if self._max_requests > 0:
                 with self._inflight_lock:
@@ -484,6 +503,18 @@ class S3Server:
         if self.metrics is not None:
             self.metrics.record_http(request.method, resp.status)
             self.metrics.record_api(api_name, duration, resp.status < 400)
+        # Always-on ops/s ring (control/perf.py OpsTimeSeries): one bump per
+        # request under its op class. Bytes from the headers -- rx is the
+        # client's declared body, tx what we are about to send.
+        try:
+            nbytes = int(request.headers.get("Content-Length") or 0) + (
+                resp.content_length or 0
+            )
+        except (TypeError, ValueError):
+            nbytes = 0
+        GLOBAL_PERF.timeseries.record(
+            op_class(api_name), duration, ok=resp.status < 400, nbytes=nbytes
+        )
         if self.trace is not None and self.trace.enabled():
             self.trace.publish(
                 "http",
@@ -606,9 +637,10 @@ class S3Server:
         if clen is not None and clen > MAX_OBJECT_SIZE + (1 << 20):
             raise S3Error("EntityTooLarge")
         base = _RequestBodyReader(request, asyncio.get_running_loop())
-        access_key, reader = await asyncio.to_thread(
-            self._authenticate_streaming, request, base
-        )
+        with tracing.span("auth", "api"):
+            access_key, reader = await asyncio.to_thread(
+                self._authenticate_streaming, request, base
+            )
         request["access_key"] = access_key
         q = request.rel_url.query
         action = policy_mod.s3_action("PUT", bucket, key, q)
@@ -683,7 +715,10 @@ class S3Server:
         this replaces). Unknown lengths keep the join fallback."""
         clen = request.content_length
         if clen is None or clen > MAX_OBJECT_SIZE + (1 << 20):
-            return await request.read()
+            body = await request.read()
+            # Copy-ledger hop: chunk staging + join materializes the body.
+            GLOBAL_PROFILER.copy.record("socket-read", COPIED, len(body))
+            return body
         if clen == 0:
             return b""
         buf = bytearray(clen)
@@ -699,6 +734,9 @@ class S3Server:
             pos += take
         if pos < clen:
             del buf[pos:]
+        # Copy-ledger hop: one landing into the right-sized buffer; handlers
+        # consume the bytearray in place.
+        GLOBAL_PROFILER.copy.record("socket-read", MOVED, pos)
         return buf
 
     async def _dispatch(self, request: web.Request, request_id: str) -> web.Response:
@@ -749,7 +787,8 @@ class S3Server:
             and not ({"tagging", "retention", "legal-hold", "acl"} & set(request.rel_url.query))
         ):
             return await self._streaming_put_entry(request, bucket, key)
-        body = await self._read_buffered_body(request)
+        with tracing.span("body-read", "api"):
+            body = await self._read_buffered_body(request)
         # POST policy form uploads authenticate via the policy signature in
         # the form, not request headers (PostPolicyBucketHandler equivalent).
         ctype = request.headers.get("Content-Type", "")
@@ -762,7 +801,8 @@ class S3Server:
             return await asyncio.to_thread(
                 self._post_policy_upload, bucket, body, ctype, request
             )
-        access_key, body = await asyncio.to_thread(self._authenticate, request, body)
+        with tracing.span("auth", "api"):
+            access_key, body = await asyncio.to_thread(self._authenticate, request, body)
         request["access_key"] = access_key
         q = request.rel_url.query
 
@@ -1242,7 +1282,7 @@ class S3Server:
                     )
                 )
             except Exception as e:  # noqa: BLE001 - malformed stored policy is not public
-                self._log_once(
+                GLOBAL_LOGGER.log_once(
                     f"bucket {bucket}: stored policy unparsable, treating as private: {e}",
                     key=f"policy-status-{bucket}",
                 )
@@ -1899,7 +1939,7 @@ class S3Server:
         try:
             used = self.quota_usage(bucket)
         except Exception as e:  # noqa: BLE001 - usage source down != reject writes
-            self._log_once(
+            GLOBAL_LOGGER.log_once(
                 f"quota usage source failed for {bucket}, skipping enforcement: {e}",
                 key=f"quota-usage-{bucket}",
             )
@@ -2337,7 +2377,11 @@ class S3Server:
         # Last chance for a clean 503: once the plan is prepared the status
         # line and Content-Length are on the wire and a spent budget can
         # only abort the connection, not change the answer.
-        deadline.check("streaming get")
+        try:
+            deadline.check("streaming get")
+        except oerr.DeadlineExceeded:
+            GLOBAL_DEGRADE.record_deadline_abort("api-get")
+            raise
         oi, it = stream_fn(bucket, key, opts, offset=offset, length=length)
         headers = self._object_headers(oi)
         headers.update(self._sse_response_headers(oi))
@@ -2360,23 +2404,39 @@ class S3Server:
         resp.content_length = plan.content_length
         await resp.prepare(request)
         it = plan.iterator
+        # One span over the whole body stream: covers both pulling chunks
+        # out of the (lazy) erasure read generator and pushing them onto
+        # the socket -- the time a GET spends after headers.
+        wr = tracing.span("response-write", "api", bytes=plan.content_length)
+        sent = 0
         try:
             while True:
                 chunk = await asyncio.to_thread(next, it, None)
                 if chunk is None:
                     break
+                sent += len(chunk)
                 await resp.write(chunk)
-        except Exception:
+        except Exception as e:
             # Headers (and a Content-Length promise) are already on the
             # wire: substituting an error response here would interleave
             # a second set of headers into the half-sent body and leave
             # the client waiting out the original length. Close the
             # connection instead so the client fails fast on truncation.
+            wr.finish(error=type(e).__name__)
+            # Copy-ledger hop: chunks handed to aiohttp by reference --
+            # zero-copy from this layer's point of view (partial count on
+            # an aborted stream is honest: those bytes did cross the hop).
+            GLOBAL_PROFILER.copy.record("response-write", MOVED, sent)
+            cur = tracing.current()
+            if cur is not None:
+                cur.set(stream_aborted=type(e).__name__)
             with contextlib.suppress(Exception):
                 it.close()
             if request.transport is not None:
                 request.transport.close()
         else:
+            wr.finish()
+            GLOBAL_PROFILER.copy.record("response-write", MOVED, sent)
             with contextlib.suppress(Exception):
                 await resp.write_eof()
         return resp
@@ -2661,15 +2721,17 @@ class S3Server:
                     self.replication.on_put(bucket, oi)
                 elif event_name.startswith("s3:ObjectRemoved:"):
                     self.replication.on_delete(bucket, oi)
-            except Exception:  # noqa: BLE001 - replication is async best-effort
-                _log.exception("replication hook failed: %s %s/%s", event_name, bucket, oi.name)
+            except Exception as e:  # noqa: BLE001 - replication is async best-effort
+                GLOBAL_LOGGER.error(
+                    f"replication hook failed: {event_name} {bucket}/{oi.name}", exc=e
+                )
         # (The JAX front also emits a bucket notification event here;
         # events are not ported yet.)
         if self.on_event is not None:
             try:
                 self.on_event(event_name, bucket, oi)
-            except Exception:  # noqa: BLE001 - observer hook must not fail the op
-                _log.exception("on_event hook failed: %s", event_name)
+            except Exception as e:  # noqa: BLE001 - observer hook must not fail the op
+                GLOBAL_LOGGER.error(f"on_event hook failed: {event_name}", exc=e)
 
 
 def _api_name(method: str, bucket: str, key: str, q) -> str:

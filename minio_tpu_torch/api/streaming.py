@@ -18,6 +18,7 @@ from __future__ import annotations
 import hashlib
 import hmac
 
+from ..control.profiler import COPIED, GLOBAL_PROFILER, MOVED
 from .auth import Credentials, STREAMING_PAYLOAD, signing_key
 from .errors import S3Error
 
@@ -279,7 +280,12 @@ class SignedChunkReader:
         returns bytes landed, 0 at end of the chunked body."""
         if not isinstance(dest, memoryview):
             dest = memoryview(dest)
-        return self._decode_into(dest)
+        total = self._decode_into(dest)
+        if total:
+            # Copy-ledger hop: payload decodes straight into the caller's
+            # pooled buffer -- verified bytes are never restaged.
+            GLOBAL_PROFILER.copy.record("sigv4-chunk-parse", MOVED, total)
+        return total
 
     def read(self, n: int) -> bytes:
         """Legacy bytes-returning fallback for non-pooled consumers."""
@@ -287,4 +293,6 @@ class SignedChunkReader:
             return b""
         buf = bytearray(n)
         got = self._decode_into(memoryview(buf))
+        if got:
+            GLOBAL_PROFILER.copy.record("sigv4-chunk-parse", COPIED, got)
         return bytes(buf[:got])

@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 from ..object.erasure import META_BUCKET
 from ..object.types import GetObjectOptions, PutObjectOptions
 from ..utils import errors
+from .sanitizer import san_lock, san_rlock
 
 
 @dataclass
@@ -55,7 +56,7 @@ class BucketMetadataSys:
     def __init__(self, layer):
         self.layer = layer
         self._cache: dict[str, BucketMetadata] = {}
-        self._lock = threading.RLock()
+        self._lock = san_rlock("BucketMetadataSys._lock")
         # Fired after every durable mutation (save/update/delete) with the
         # bucket name. The node wires this to the peer-invalidation
         # broadcast: this cache has NO TTL, so EVERY writer — the S3

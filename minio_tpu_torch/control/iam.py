@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from ..api.auth import Credentials
 from ..utils import errors
 from . import policy as policy_mod
+from .sanitizer import san_lock, san_rlock
 
 IAM_PREFIX = "config/iam"
 
@@ -83,13 +84,13 @@ class IAMSys:
         # store first, so two nodes mutating concurrently can't clobber
         # each other's whole-snapshot writes.
         self.ns_lock = None
-        self._lock = threading.RLock()
-        self._persist_lock = threading.Lock()
+        self._lock = san_rlock("IAMSys._lock")
+        self._persist_lock = san_lock("IAMSys._persist_lock")
         # Serializes whole mutations AND reloads: a peer-triggered load()
         # landing between a mutation's in-memory apply and its persist
         # would reset state to the pre-mutation snapshot and the persist
         # would then write the change away.
-        self._mutate_lock = threading.RLock()
+        self._mutate_lock = san_rlock("IAMSys._mutate_lock")
 
     # -- persistence ---------------------------------------------------------
 

@@ -21,6 +21,7 @@ except ImportError:  # gated: a node without SSE must still boot
     AESGCM = None
 
 from ..utils import errors
+from .sanitizer import san_lock, san_rlock
 
 
 @dataclass
@@ -121,13 +122,13 @@ class KESClient(KMS):
         self._timeout = timeout
         self._cache: "dict[tuple[str, bytes, str], bytes]" = {}
         self._cache_size = cache_size
-        self._lock = threading.Lock()
+        self._lock = san_lock("KESClient._lock")
         # Small pool of persistent keep-alive connections. The lock guards
         # only checkout/checkin, never the network round-trip, so concurrent
         # SSE-KMS requests don't convoy behind one socket.
         self._pool: list = []
         self._pool_cap = 4
-        self._conn_lock = threading.Lock()
+        self._conn_lock = san_lock("KESClient._conn_lock")
 
     @classmethod
     def from_env(cls) -> "KESClient | None":

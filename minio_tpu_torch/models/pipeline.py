@@ -16,12 +16,12 @@ launch raises.
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..control.sanitizer import san_lock
 from ..ops import bitmatrix, highwayhash_cuda, rs_cuda, rs_matrix
 from ..ops import fused as fused_ops
 
@@ -82,7 +82,7 @@ class ErasurePipeline:
         self._parity = rs_matrix.parity_matrix(geometry.data, geometry.parity)
         self._encode_fn = fused_ops.make_step(geometry.data, geometry.parity)
         self._recon: dict[tuple, np.ndarray] = {}
-        self._recon_lock = threading.Lock()
+        self._recon_lock = san_lock("ErasurePipeline._recon_lock")
 
     def _to_device(self, shards) -> torch.Tensor:
         if not isinstance(shards, torch.Tensor):

@@ -22,6 +22,7 @@ import threading
 import numpy as np
 import torch
 
+from ..control import tracing
 from ..ops import highwayhash as hh
 from ..ops import rs_matrix, rs_ref
 
@@ -149,17 +150,20 @@ class HostCodec(BlockCodec):
         return hh.hash256_batch(shards)
 
     def encode(self, blocks, k, m):
-        out = []
-        for block in blocks:
-            shards = self._encode_one(_split_block(block, k), m)  # [K+M, S]
-            digests = self._digests(shards)
-            out.append(
-                (
-                    [shards[i].tobytes() for i in range(k + m)],
-                    [digests[i].tobytes() for i in range(k + m)],
+        with tracing.span(
+            "erasure.encode", "erasure", blocks=len(blocks), k=k, m=m, host=True
+        ):
+            out = []
+            for block in blocks:
+                shards = self._encode_one(_split_block(block, k), m)  # [K+M, S]
+                digests = self._digests(shards)
+                out.append(
+                    (
+                        [shards[i].tobytes() for i in range(k + m)],
+                        [digests[i].tobytes() for i in range(k + m)],
+                    )
                 )
-            )
-        return out
+            return out
 
     def reconstruct(self, shards, k, m, want):
         arrs: list[np.ndarray | None] = [

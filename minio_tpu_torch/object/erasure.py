@@ -34,6 +34,11 @@ import uuid
 from collections import deque
 from typing import Iterator
 
+from ..chaos import crash
+from ..control import tracing
+from ..control.degrade import GLOBAL_DEGRADE
+from ..control.perf import GLOBAL_PERF
+from ..control.profiler import COPIED, GLOBAL_PROFILER, MOVED
 from ..ops import bitrot as bitrot_mod
 from ..storage.interface import StorageAPI
 from ..storage.types import ErasureInfo, FileInfo, ObjectPartInfo, now
@@ -177,8 +182,9 @@ def _uniform_runs(blocks: list) -> list[list]:
 def _fill_window(reader, view: memoryview) -> int:
     """Fill `view` from the reader; a short count means EOF.
 
-    readinto readers land payload straight into the window; the legacy
-    read() fallback copies each chunk in."""
+    readinto readers land payload straight into the window (the reader
+    records its own landing hop: socket-read / sigv4-chunk-parse); the
+    legacy read() fallback copies each chunk in and says so."""
     n = len(view)
     pos = 0
     ri = getattr(reader, "readinto", None)
@@ -188,6 +194,8 @@ def _fill_window(reader, view: memoryview) -> int:
             if not got:
                 break
             pos += got
+        if pos:
+            GLOBAL_PROFILER.copy.record("erasure-stage", MOVED, pos)
         return pos
     while pos < n:
         chunk = reader.read(n - pos)
@@ -195,6 +203,8 @@ def _fill_window(reader, view: memoryview) -> int:
             break
         view[pos : pos + len(chunk)] = chunk
         pos += len(chunk)
+    if pos:
+        GLOBAL_PROFILER.copy.record("erasure-stage", COPIED, pos)
     return pos
 
 
@@ -202,7 +212,9 @@ def _buffer_windows(data) -> Iterator[_Window]:
     """Windows over an in-memory payload: pure views, no staging at all."""
     mv = memoryview(data)
     for off in range(0, len(mv), WINDOW_BYTES):
-        yield _Window(mv[off : off + WINDOW_BYTES])
+        win = mv[off : off + WINDOW_BYTES]
+        GLOBAL_PROFILER.copy.record("erasure-stage", MOVED, len(win))
+        yield _Window(win)
 
 
 def _stream_windows(reader, pool, pb, filled: int) -> Iterator[_Window]:
@@ -362,9 +374,9 @@ class _GetStager:
     (chunks, close) units; close() recycles the window's pooled buffers
     and MUST be called by whoever consumes (or drops) the unit.
 
-    The source generator runs under a copy of the caller's context, so
-    context variables set by the request stay visible in the stager
-    thread."""
+    The source generator runs under a copy of the caller's context:
+    tracing spans stay parented to the request and the deadline budget
+    keeps applying inside the stager thread."""
 
     def __init__(self, src, depth: int):
         self._src = src
@@ -605,13 +617,47 @@ class ShardStageWriter:
         fan-out moves bytes without joining them."""
         if not group:
             return None
-        if self._hashers is not None:
-            return self._append_whole(group)
-        eg = self.codec.encode_group(group, self.k, self.m)
+        # Stage marks feed the always-on perf ledger: "encode" is the codec
+        # call, "shard-fanout" the blocking part of the staged appends -- the
+        # two halves of where a streaming PUT's group time goes.
+        with tracing.span("encode", "object", blocks=len(group)):
+            if self._hashers is None:
+                eg = self.codec.encode_group(group, self.k, self.m)
+            else:
+                # Whole-file layout: raw chunks, one running digest per row.
+                encoded = self.codec.encode(group, self.k, self.m)
+                row_frames = []
+                for row in range(self.k + self.m):
+                    chunks = [e[0][row] for e in encoded]
+                    for c in chunks:
+                        self._hashers[row].update(c)
+                    row_frames.append(b"".join(chunks))
         self._appended = True
+
+        if self._hashers is not None:
+            # Each drive's row is appended synchronously.
+            def wr(i):
+                if not self.ok[i]:
+                    return
+                row = self.distribution[i] - 1
+                self.disks[i].append_file(META_BUCKET, self.stage_path(i), row_frames[row])
+
+            GLOBAL_PROFILER.copy.record(
+                "shard-fanout", MOVED, sum(len(f) for f in row_frames)
+            )
+            with tracing.span("shard-fanout", "object", drives=len(self.disks)):
+                for i, (_, e) in enumerate(meta_mod.parallel_map(wr, range(len(self.disks)))):
+                    if e is not None:
+                        self.ok[i] = False
+            return None
+
+        GLOBAL_PROFILER.copy.record(
+            "shard-fanout", MOVED, sum(eg.row_nbytes(r) for r in range(self.k + self.m))
+        )
         self._reap()
         while len(self._pending) >= self._inflight:
-            self._collect(self._pending.popleft())
+            with tracing.span("shard-fanout", "object", drives=len(self.disks)):
+                self._collect(self._pending.popleft())
         futs = []
         for i, d in enumerate(self.disks):
             if not self.ok[i]:
@@ -628,36 +674,16 @@ class ShardStageWriter:
         self._pending.append(futs)
         return eg.digest_stream
 
-    def _append_whole(self, group: list) -> None:
-        """Whole-file layout: raw chunks, one running digest per row, each
-        drive's row appended synchronously."""
-        encoded = self.codec.encode(group, self.k, self.m)
-        self._appended = True
-        row_frames = []
-        for row in range(self.k + self.m):
-            chunks = [e[0][row] for e in encoded]
-            for c in chunks:
-                self._hashers[row].update(c)
-            row_frames.append(b"".join(chunks))
-
-        def wr(i):
-            if not self.ok[i]:
-                return
-            row = self.distribution[i] - 1
-            self.disks[i].append_file(META_BUCKET, self.stage_path(i), row_frames[row])
-
-        for i, (_, e) in enumerate(meta_mod.parallel_map(wr, range(len(self.disks)))):
-            if e is not None:
-                self.ok[i] = False
-        return None
-
     def drain(self) -> None:
         """Block until every in-flight group write has landed; ok[] is final
         after this returns. Callers drain before commit AND before deleting
         staged files (a late write racing a tmp cleanup would resurrect the
         file)."""
-        while self._pending:
-            self._collect(self._pending.popleft())
+        if not self._pending:
+            return
+        with tracing.span("shard-fanout", "object", drives=len(self.disks)):
+            while self._pending:
+                self._collect(self._pending.popleft())
 
     def abort(self) -> None:
         self.drain()
@@ -1026,51 +1052,55 @@ class ErasureObjects:
                     f"unknown bitrot algorithm {opts.bitrot_algorithm!r}",
                 ) from None
 
-        # Whole-file bitrot objects always take the streaming (shard-file)
-        # path: the legacy layout has no inline representation. Buffer
-        # payloads are windowed as views in place; readers land once into a
-        # pooled window -- peeked here for the inline decision.
-        if isinstance(data, (bytes, bytearray, memoryview)):
-            if len(data) < SMALL_FILE_THRESHOLD and not wants_whole:
-                oi = self._put_inline(
-                    bucket, object_name, data, opts, k, m, distribution, version_id, mod_time
-                )
-            else:
-                oi = self._put_streaming(
-                    bucket, object_name, _buffer_windows(data), opts, k, m,
-                    distribution, version_id, mod_time,
-                )
-        elif hasattr(data, "read") or hasattr(data, "readinto"):
-            pool = bufpool.window_pool()
-            pb = pool.acquire()
-            mv = pb.view()
-            try:
-                filled = _fill_window(data, mv)
-            except BaseException:
-                # The propagating traceback pins the reader's frames,
-                # which may hold slices of `mv` this code cannot reach
-                # -- discard the storage instead of recycling it.
+        with tracing.span(
+            "object.PutObject", "object", bucket=bucket, object=object_name
+        ) as sp:
+            # Whole-file bitrot objects always take the streaming (shard-file)
+            # path: the legacy layout has no inline representation. Buffer
+            # payloads are windowed as views in place; readers land once into a
+            # pooled window -- peeked here for the inline decision.
+            if isinstance(data, (bytes, bytearray, memoryview)):
+                if len(data) < SMALL_FILE_THRESHOLD and not wants_whole:
+                    oi = self._put_inline(
+                        bucket, object_name, data, opts, k, m, distribution, version_id, mod_time
+                    )
+                else:
+                    oi = self._put_streaming(
+                        bucket, object_name, _buffer_windows(data), opts, k, m,
+                        distribution, version_id, mod_time,
+                    )
+            elif hasattr(data, "read") or hasattr(data, "readinto"):
+                pool = bufpool.window_pool()
+                pb = pool.acquire()
+                mv = pb.view()
+                try:
+                    filled = _fill_window(data, mv)
+                except BaseException:
+                    # The propagating traceback pins the reader's frames,
+                    # which may hold slices of `mv` this code cannot reach
+                    # -- discard the storage instead of recycling it.
+                    _quiet_release(mv)
+                    pb.discard()
+                    raise
                 _quiet_release(mv)
-                pb.discard()
-                raise
-            _quiet_release(mv)
-            if filled < SMALL_FILE_THRESHOLD and not wants_whole:
-                head = bytes(pb.view(0, filled))  # the inline blob outlives the pooled window
-                pb.release()
-                oi = self._put_inline(
-                    bucket, object_name, head, opts, k, m, distribution, version_id, mod_time
-                )
+                if filled < SMALL_FILE_THRESHOLD and not wants_whole:
+                    head = bytes(pb.view(0, filled))  # the inline blob outlives the pooled window
+                    pb.release()
+                    oi = self._put_inline(
+                        bucket, object_name, head, opts, k, m, distribution, version_id, mod_time
+                    )
+                else:
+                    windows = _wrap_readahead(_stream_windows(data, pool, pb, filled))
+                    oi = self._put_streaming(
+                        bucket, object_name, windows, opts, k, m,
+                        distribution, version_id, mod_time,
+                    )
             else:
-                windows = _wrap_readahead(_stream_windows(data, pool, pb, filled))
-                oi = self._put_streaming(
-                    bucket, object_name, windows, opts, k, m,
-                    distribution, version_id, mod_time,
+                raise TypeError(
+                    f"put_object data must be bytes or a reader, got {type(data)!r}"
                 )
-        else:
-            raise TypeError(
-                f"put_object data must be bytes or a reader, got {type(data)!r}"
-            )
-        return oi
+            sp.set(size=oi.size)
+            return oi
 
     def _make_put_fi(
         self,
@@ -1116,7 +1146,8 @@ class ErasureObjects:
         size = len(data)
         etag = opts.etag or hashlib.md5(data).hexdigest()
         blocks = [data[i : i + BLOCK_SIZE] for i in range(0, size, BLOCK_SIZE)]
-        encoded = self.codec.encode(blocks, k, m) if blocks else []
+        with tracing.span("encode", "object", blocks=len(blocks)):
+            encoded = self.codec.encode(blocks, k, m) if blocks else []
         shard_files = [
             _frame_shard([e[0][row] for e in encoded], [e[1][row] for e in encoded])
             for row in range(k + m)
@@ -1146,15 +1177,16 @@ class ErasureObjects:
             disk.write_metadata(bucket, object_name, fi)
 
         # Inline puts have no staging: the metadata write IS the commit.
-        lk = self.ns_lock.new(bucket, object_name)
-        if not lk.acquire(writer=True, timeout=30):
-            raise errors.ErasureWriteQuorum(
-                bucket, object_name, "namespace lock timeout"
-            )
-        try:
-            results = meta_mod.parallel_map(write_one, list(enumerate(self._online())))
-        finally:
-            lk.release()
+        with tracing.span("commit", "object", drives=self.drive_count):
+            lk = self.ns_lock.new(bucket, object_name)
+            if not lk.acquire(writer=True, timeout=30):
+                raise errors.ErasureWriteQuorum(
+                    bucket, object_name, "namespace lock timeout"
+                )
+            try:
+                results = meta_mod.parallel_map(write_one, list(enumerate(self._online())))
+            finally:
+                lk.release()
         errs = [e for _, e in results]
         n_ok = sum(1 for e in errs if e is None)
         if n_ok < write_quorum:
@@ -1239,7 +1271,11 @@ class ErasureObjects:
                     # shards deleted locally, no budget needed), so a slow
                     # client or slow drives can't stream past the caller's
                     # patience.
-                    deadline.check("erasure put")
+                    try:
+                        deadline.check("erasure put")
+                    except errors.DeadlineExceeded:
+                        GLOBAL_DEGRADE.record_deadline_abort("erasure-put")
+                        raise
                     blocks = win.blocks()
                     size += len(win)
                     if md5h is not None:
@@ -1252,6 +1288,10 @@ class ErasureObjects:
                     # The group's writes hold encoder-owned views, never the
                     # window -- recycle it before the next read lands.
                     win.release()
+                    # One window's groups appended (pre-sync, pre-drain):
+                    # dying here leaves partial stage files + a checked-out
+                    # readahead window for the recovery scan to account for.
+                    crash.crash_point("put.after-stage")
                     if writer.alive() < write_quorum:
                         raise errors.ErasureWriteQuorum(
                             bucket, object_name, f"write quorum {write_quorum} lost mid-stream"
@@ -1278,10 +1318,17 @@ class ErasureObjects:
         etag = opts.etag or (etag_h.hexdigest() if etag_h is not None else md5h.hexdigest())
         base_meta = {"etag": etag, "content-type": opts.content_type, **opts.user_defined}
         row_sums = writer.whole_checksums()
+        # All shards staged + drained, no xl.meta exists anywhere yet: the
+        # un-acked object must be invisible after restart.
+        crash.crash_point("put.before-commit")
 
         def commit(i) -> None:
             if not ok[i]:
                 raise errors.DiskNotFound()
+            # Fires on the (skip+1)-th drive entering commit: skip=j models
+            # dying with exactly j drives' rename_data already durable
+            # (partial-quorum commit). `raise` mode degrades just that drive.
+            crash.crash_point("put.mid-commit", disks[i].endpoint() if disks[i] else "")
             shard_row = distribution[i] - 1
             checksums = None
             if row_sums is not None:
@@ -1308,16 +1355,19 @@ class ErasureObjects:
             )
             disks[i].rename_data(META_BUCKET, tmp_dir(i), fi, bucket, object_name)
 
-        lk = self.ns_lock.new(bucket, object_name)
-        if not lk.acquire(writer=True, timeout=30):
-            cleanup(range(n))
-            raise errors.ErasureWriteQuorum(
-                bucket, object_name, "namespace lock timeout"
-            )
-        try:
-            results = meta_mod.parallel_map(commit, list(range(n)))
-        finally:
-            lk.release()
+        # The commit stage covers lock wait + rename_data quorum fan-out:
+        # both are serialization costs the encode pipeline can't hide.
+        with tracing.span("commit", "object", drives=n):
+            lk = self.ns_lock.new(bucket, object_name)
+            if not lk.acquire(writer=True, timeout=30):
+                cleanup(range(n))
+                raise errors.ErasureWriteQuorum(
+                    bucket, object_name, "namespace lock timeout"
+                )
+            try:
+                results = meta_mod.parallel_map(commit, list(range(n)))
+            finally:
+                lk.release()
         errs = [e for _, e in results]
         n_ok = sum(1 for e in errs if e is None)
         # Drop stragglers' staging dirs (committed drives' tmp dirs were
@@ -1330,6 +1380,10 @@ class ErasureObjects:
             )
         if n_ok < len(errs) and self.on_partial is not None:
             self.on_partial(bucket, object_name, version_id)
+        # Quorum reached but the client never saw the 200: after restart the
+        # object may exist (it reached quorum) -- if it does, it must be
+        # complete and bit-identical, never partially visible.
+        crash.crash_point("put.after-commit")
         fi = self._make_put_fi(
             bucket,
             object_name,
@@ -1432,7 +1486,12 @@ class ErasureObjects:
         erasure-decode.go:31-202). Memory is O(GROUP_BLOCKS x BLOCK_SIZE)."""
         opts = opts or GetObjectOptions()
         self._check_bucket(bucket)
-        fi, metas, disks = self._read_quorum_fi(bucket, object_name, opts.version_id)
+        # The object span covers the quorum metadata read; per-drive shard
+        # reads during streaming publish storage spans as the body flows.
+        with tracing.span(
+            "object.GetObject", "object", bucket=bucket, object=object_name
+        ):
+            fi, metas, disks = self._read_quorum_fi(bucket, object_name, opts.version_id)
         if fi.deleted:
             raise (
                 errors.MethodNotAllowed(bucket, object_name)
@@ -1562,12 +1621,21 @@ class ErasureObjects:
                                 raise errors.FileCorrupt("short shard file")
                         else:
                             blob = disk.read_file(bucket, path, file_off, file_len)
-                    # Frame parsing slices memoryviews over the read blob --
-                    # zero-copy by construction.
+                    # Stage mark via direct ledger record: pool threads carry
+                    # no span context (same rationale as storage metering).
+                    t_fp = time.perf_counter()
+                    c_fp = time.thread_time()
                     parsed = _parse_frames(blob, window_sizes)
+                    # Copy-ledger hop: frame parsing slices memoryviews over
+                    # the read blob -- zero-copy by construction.
+                    GLOBAL_PROFILER.copy.record("frame-parse", MOVED, len(blob))
                     # Verify here, in the parallel read thread: rows of one
                     # window verify concurrently.
                     oks = _verify_frames(self.codec, parsed)
+                    GLOBAL_PERF.ledger.record(
+                        "object", "frame-parse",
+                        time.perf_counter() - t_fp, time.thread_time() - c_fp,
+                    )
                     if pb is not None:
                         if bufs.add(pb):
                             pb = None
@@ -1607,17 +1675,24 @@ class ErasureObjects:
             covered: set[int] = set()
             durations: list[float] = []
             usable: set[int] = set()
+            launched = 0
 
             def launch(j: int, covering: int | None) -> None:
+                nonlocal launched
                 issued_at[j] = time.monotonic()
                 f = meta_mod.parallel_submit(read_window, [j])[0]
                 by_future[f] = j
                 if covering is not None:
                     hedged.add(j)
                     covered.add(covering)
+                    launched += 1
 
             while len(usable) < k and by_future:
-                deadline.check("hedged erasure read")
+                try:
+                    deadline.check("hedged erasure read")
+                except errors.DeadlineExceeded:
+                    GLOBAL_DEGRADE.record_deadline_abort("erasure-get")
+                    raise
                 done, _ = _cf.wait(
                     set(by_future), timeout=_HEDGE_POLL,
                     return_when=_cf.FIRST_COMPLETED,
@@ -1649,6 +1724,12 @@ class ErasureObjects:
                         continue
                     if now - issued_at[j] > threshold:
                         launch(spare_queue.pop(0), covering=j)
+            wins = len(usable & hedged)
+            if launched:
+                GLOBAL_DEGRADE.record_hedge(launched, wins)
+                cur = tracing.current()
+                if cur is not None:
+                    cur.set(hedge_launched=launched, hedge_wins=wins)
 
         starts = list(range(b0, b1 + 1, GROUP_BLOCKS))
 
@@ -1672,7 +1753,7 @@ class ErasureObjects:
                         chunks = self._decode_window(
                             bucket, object_name, k, mth, g0, g1,
                             read_window, futures, issued_at, gather_hedged,
-                            chunk_len, block_len, lo, hi,
+                            chunk_len, block_len, lo, hi, len(primaries),
                         )
                     except BaseException:
                         bufs.close()
@@ -1734,6 +1815,7 @@ class ErasureObjects:
         block_len,
         lo: int,
         hi: int,
+        n_primaries: int,
     ) -> list:
         """Gather + verify one window's rows and return its response chunks
         (row views on the healthy path; decoded bytes where reconstructed)."""
@@ -1747,7 +1829,10 @@ class ErasureObjects:
             frames[j], oks[j] = result if result is not None else (None, None)
             loaded[j] = True
 
-        gather_hedged(read_window, futures, issued_at, install)
+        # GET-side stage mark: the hedged shard gather is where a
+        # degraded or slow-drive read spends its time.
+        with tracing.span("shard-read", "object", drives=n_primaries):
+            gather_hedged(read_window, futures, issued_at, install)
 
         def load_spares() -> None:
             spare = [j for j in range(k + mth) if not loaded[j]]
@@ -1796,13 +1881,22 @@ class ErasureObjects:
             if want:
                 pattern = tuple(r is not None for r in rows)
                 groups.setdefault((pattern, want), []).append(wi)
-        for (_, want), idxs in groups.items():
-            results = self.codec.reconstruct_batch(
-                [rows_by_block[wi] for wi in idxs], k, mth, want
-            )
-            for wi, (chunks, _) in zip(idxs, results):
-                for slot, j in enumerate(want):
-                    rows_by_block[wi][j] = chunks[slot]
+        if groups:
+            # Only a degraded window pays for (and reports) a decode
+            # stage; healthy reads skip the mark entirely.
+            with tracing.span("decode", "object", blocks=len(rows_by_block)):
+                for (_, want), idxs in groups.items():
+                    results = self.codec.reconstruct_batch(
+                        [rows_by_block[wi] for wi in idxs], k, mth, want
+                    )
+                    for wi, (chunks, _) in zip(idxs, results):
+                        for slot, j in enumerate(want):
+                            rows_by_block[wi][j] = chunks[slot]
+                            # Copy-ledger hop: a degraded read rebuilds
+                            # the missing rows into fresh buffers.
+                            GLOBAL_PROFILER.copy.record(
+                                "decode", COPIED, len(chunks[slot])
+                            )
 
         # Healthy path: the response chunks ARE the data-row views -- no
         # join, no copy; _block_pieces trims the range/tail per block.
@@ -2026,7 +2120,10 @@ class ErasureObjects:
     def delete_object(
         self, bucket: str, object_name: str, opts: DeleteObjectOptions | None = None
     ) -> ObjectInfo:
-        return self._delete_object(bucket, object_name, opts)
+        with tracing.span(
+            "object.DeleteObject", "object", bucket=bucket, object=object_name
+        ):
+            return self._delete_object(bucket, object_name, opts)
 
     def _delete_object(
         self, bucket: str, object_name: str, opts: DeleteObjectOptions | None = None
@@ -2103,7 +2200,10 @@ class ErasureObjects:
     ) -> HealResultItem:
         """Reconstruct missing/corrupt shards onto stale drives
         (cmd/erasure-healing.go:257 healObject equivalent)."""
-        return self._heal_object(bucket, object_name, version_id, dry_run)
+        with tracing.span(
+            "object.HealObject", "object", bucket=bucket, object=object_name
+        ):
+            return self._heal_object(bucket, object_name, version_id, dry_run)
 
     def _heal_object(
         self, bucket: str, object_name: str, version_id: str = "", dry_run: bool = False

@@ -19,14 +19,14 @@ from __future__ import annotations
 
 import bisect
 import hashlib
-import logging
 import struct
 import threading
 import time
 
 import msgpack
 
-_log = logging.getLogger(__name__)
+from ..control.logging import GLOBAL_LOGGER
+from ..control.sanitizer import san_lock, san_rlock
 
 META_BUCKET = ".minio.sys"
 
@@ -80,9 +80,7 @@ class MetacacheManager:
         # prefix) per process: after that, either the in-memory cache or a
         # walk is strictly fresher.
         self._cold_checked: set[tuple[str, str]] = set()
-        self._lock = threading.Lock()
-        # Log keys already warned about: each failure kind is logged once.
-        self._logged: set[str] = set()
+        self._lock = san_lock("MetacacheManager._lock")
         # Instrumentation: tests pin that paging does not re-walk per page.
         self.walks = 0
         self.hits = 0
@@ -169,15 +167,11 @@ class MetacacheManager:
                         cache_path(bucket, prefix), _HDR.pack(time.time()) + body
                     )
                 except Exception as e:  # noqa: BLE001 - persistence is best effort
-                    self._log_once("metacache-persist", f"metacache persist failed for {bucket}/{prefix}: {e}")
+                    GLOBAL_LOGGER.log_once(
+                        f"metacache persist failed for {bucket}/{prefix}: {e}",
+                        key="metacache-persist",
+                    )
         return self._page(cache, marker)
-
-    def _log_once(self, key: str, msg: str) -> None:
-        with self._lock:
-            if key in self._logged:
-                return
-            self._logged.add(key)
-        _log.warning(msg)
 
     def _load_persisted(self, bucket: str, prefix: str) -> _Cache | None:
         """Cold-start reuse of a persisted image, bounded by wall-clock TTL.

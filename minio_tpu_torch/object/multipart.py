@@ -14,8 +14,6 @@ renames -- no re-coding.
 
 Part uploads go through the erasure layer's ShardStageWriter, so a part
 encodes through the set's codec -- on the batching codec, the GPU kernels.
-This copy leaves out the JAX package's instrumentation hooks; the bytes
-written and the behaviour are the same.
 """
 
 from __future__ import annotations
@@ -25,6 +23,9 @@ import json
 import os
 import uuid
 
+from ..chaos import crash
+from ..control import tracing
+from ..control.degrade import GLOBAL_DEGRADE
 from ..storage.types import ErasureInfo, FileInfo, ObjectPartInfo, now
 from ..utils import deadline, errors
 from ..utils.hashes import hash_order
@@ -101,6 +102,17 @@ class MultipartManager:
     def put_object_part(
         self, bucket: str, object_name: str, upload_id: str, part_number: int, data
     ) -> ObjectPartInfo:
+        with tracing.span(
+            "object.PutObjectPart", "object",
+            bucket=bucket, object=object_name, part=part_number,
+        ):
+            return self._put_object_part(
+                bucket, object_name, upload_id, part_number, data
+            )
+
+    def _put_object_part(
+        self, bucket: str, object_name: str, upload_id: str, part_number: int, data
+    ) -> ObjectPartInfo:
         """Streaming part upload: `data` is bytes or a .read(n) stream.
 
         Blocks are grouped for the device codec and shard frames appended to
@@ -127,8 +139,8 @@ class MultipartManager:
         distribution = hash_order(f"{bucket}/{object_name}", n)
         windows = data_windows(data)
         udir = _upload_dir(bucket, object_name, upload_id)
-        # pid-scoped stage name, as in the JAX package: a recovery scan can
-        # GC `.tmp.<pid>.` stage files once their owner pid is dead.
+        # pid-scoped stage name: the recovery scan GCs `.tmp.<pid>.` stage
+        # files only when their owner pid is dead (see storage/recovery.py).
         stage = f"part.{part_number}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
         disks = self.eo._online()
         writer = ShardStageWriter(
@@ -155,7 +167,11 @@ class MultipartManager:
                 for win in windows:
                     # Deadline expiry aborts into cleanup() below -- stage
                     # files are deleted, nothing leaks into the upload dir.
-                    deadline.check("upload part")
+                    try:
+                        deadline.check("upload part")
+                    except errors.DeadlineExceeded:
+                        GLOBAL_DEGRADE.record_deadline_abort("multipart-put")
+                        raise
                     blocks = win.blocks()
                     size += len(win)
                     for b in blocks:
@@ -188,20 +204,28 @@ class MultipartManager:
             {"number": part_number, "size": size, "etag": etag, "mod_time": mod_time}
         ).encode()
 
+        # Shards staged on every drive under the tmp name; nothing published.
+        crash.crash_point("multipart.part.staged")
+
         def publish(i):
             if not ok[i]:
                 raise errors.DiskNotFound()
             disks[i].rename_file(
                 META_BUCKET, f"{udir}/{stage}", META_BUCKET, f"{udir}/part.{part_number}"
             )
+            # Part renamed into place but its .meta (which list_parts /
+            # complete use to see the part) not yet written on this drive.
+            crash.crash_point("multipart.part.published", disks[i].endpoint())
             disks[i].write_all(META_BUCKET, f"{udir}/part.{part_number}.meta", part_doc)
 
-        # The rename-publish is the part's commit point.
-        results = meta_mod.parallel_map(publish, list(range(n)))
-        n_ok = sum(1 for _, e in results if e is None)
-        if n_ok < write_quorum:
-            cleanup()
-            raise errors.ErasureWriteQuorum(bucket, object_name, "upload part quorum")
+        # The rename-publish is the part's commit point (encode and
+        # shard-fanout already ride ShardStageWriter.append_group).
+        with tracing.span("commit", "object", drives=n):
+            results = meta_mod.parallel_map(publish, list(range(n)))
+            n_ok = sum(1 for _, e in results if e is None)
+            if n_ok < write_quorum:
+                cleanup()
+                raise errors.ErasureWriteQuorum(bucket, object_name, "upload part quorum")
         return ObjectPartInfo(part_number, size, size, mod_time, etag)
 
     def list_parts(
@@ -235,6 +259,17 @@ class MultipartManager:
     # -- complete / abort ----------------------------------------------------
 
     def complete_multipart_upload(
+        self, bucket: str, object_name: str, upload_id: str, parts: list[tuple[int, str]]
+    ) -> ObjectInfo:
+        with tracing.span(
+            "object.CompleteMultipartUpload", "object",
+            bucket=bucket, object=object_name, parts=len(parts),
+        ):
+            return self._complete_multipart_upload(
+                bucket, object_name, upload_id, parts
+            )
+
+    def _complete_multipart_upload(
         self, bucket: str, object_name: str, upload_id: str, parts: list[tuple[int, str]]
     ) -> ObjectInfo:
         meta_doc = self._upload_meta(bucket, object_name, upload_id)
@@ -286,11 +321,18 @@ class MultipartManager:
             i, disk = args
             if disk is None:
                 raise errors.DiskNotFound()
+            # Fires with j drives already fully committed (skip=j): the
+            # partial-quorum completion the restart scan must resolve.
+            crash.crash_point("multipart.complete.partial", disk.endpoint())
             row = distribution[i] - 1
             tmp = f"tmp/{commit_id}/{i}"
             # Renumber parts consecutively (S3 semantics: completed part list
             # order defines part numbers 1..N for reads).
             for new_num, p in enumerate(part_infos, start=1):
+                if new_num > 1:
+                    # Some parts moved out of the upload dir into the commit
+                    # staging dir, the rest still in place, no xl.meta yet.
+                    crash.crash_point("multipart.complete.mid-rename", disk.endpoint())
                 disk.rename_file(
                     META_BUCKET, f"{udir}/part.{p.number}", META_BUCKET, f"{tmp}/part.{new_num}"
                 )
@@ -316,11 +358,12 @@ class MultipartManager:
             )
             disk.rename_data(META_BUCKET, tmp, fi, bucket, object_name)
 
-        results = meta_mod.parallel_map(commit, list(enumerate(self.eo._online())))
-        n_ok = sum(1 for _, e in results if e is None)
-        write_quorum = k + 1 if k == m else k
-        if n_ok < write_quorum:
-            raise errors.ErasureWriteQuorum(bucket, object_name, "complete quorum")
+        with tracing.span("commit", "object", drives=n, parts=len(part_infos)):
+            results = meta_mod.parallel_map(commit, list(enumerate(self.eo._online())))
+            n_ok = sum(1 for _, e in results if e is None)
+            write_quorum = k + 1 if k == m else k
+            if n_ok < write_quorum:
+                raise errors.ErasureWriteQuorum(bucket, object_name, "complete quorum")
         self.abort_multipart_upload(bucket, object_name, upload_id, missing_ok=True)
         oi = ObjectInfo(
             bucket=bucket,

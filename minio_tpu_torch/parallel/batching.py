@@ -41,6 +41,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..control import tracing
+from ..control.perf import GLOBAL_PERF
+from ..control.sanitizer import san_lock
 from ..models.pipeline import ErasurePipeline, Geometry, resolve_device
 from ..object.codec import BlockCodec, digests_by_length, reconstruct_groups, stack_rows
 from ..ops import highwayhash_cuda, rs_matrix
@@ -101,7 +104,7 @@ class _PinnedPool:
     _MIN_BYTES = 4 << 10
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = san_lock("_PinnedPool._lock")
         self._free: dict[int, list[torch.Tensor]] = {}
 
     def get(self, nbytes: int) -> torch.Tensor:
@@ -133,6 +136,7 @@ class _Pending:
     b_real: int
     b_pad: int
     t0: float
+    c0: float
 
 
 class BatchingDeviceCodec(BlockCodec):
@@ -157,11 +161,11 @@ class BatchingDeviceCodec(BlockCodec):
         self._queues: dict[tuple, queue.Queue] = {}
         self._pipelines: dict = {}
         self._threads: dict[tuple, threading.Thread] = {}
-        self._lock = threading.Lock()
+        self._lock = san_lock("BatchingDeviceCodec._lock")
         # Counters are bumped by batch workers AND request threads; += is
         # load/add/store, so a dedicated leaf lock (taken inside _lock, never
         # the reverse) guards every read-modify-write.
-        self._stats_lock = threading.Lock()
+        self._stats_lock = san_lock("BatchingDeviceCodec._stats_lock")
         self._stop = threading.Event()
         # Served-traffic counters (tests and the chip smoke assert the device
         # pipeline actually carries production blocks).
@@ -315,13 +319,14 @@ class BatchingDeviceCodec(BlockCodec):
             b_real = len(batch)
             b_pad = _bucket(b_real)
             t0 = _time.perf_counter()
+            c0 = _time.thread_time()
             if stream is None:
                 arr = np.zeros((b_pad, k, s), dtype=np.uint8)
                 for i, req in enumerate(batch):
                     arr[i] = req.shards
                 shards, digests = pipe.encode(arr)
                 return _Pending(batch, shards.numpy(), digests.numpy(), None, pinned,
-                                k, m, b_real, b_pad, t0)
+                                k, m, b_real, b_pad, t0, c0)
             host_in = self._staged((b_pad, k, s), pinned)
             host_shards = self._staged((b_pad, k + m, s), pinned)
             host_digests = self._staged((b_pad, k + m, 32), pinned)
@@ -336,7 +341,7 @@ class BatchingDeviceCodec(BlockCodec):
                 event = torch.cuda.Event()
                 event.record(stream)
             return _Pending(batch, host_shards.numpy(), host_digests.numpy(), event, pinned,
-                            k, m, b_real, b_pad, t0)
+                            k, m, b_real, b_pad, t0, c0)
         except Exception as e:  # noqa: BLE001 - surfaced through every future
             self._release(pinned)
             for req in batch:
@@ -349,6 +354,14 @@ class BatchingDeviceCodec(BlockCodec):
             if rec.event is not None:
                 rec.event.synchronize()
             dt = _time.perf_counter() - rec.t0
+            # Ledger record, not a span: worker threads run outside any
+            # request context, so a span here would be a silent no-op. The
+            # cpu delta separates device wait (wall >> cpu) from host-side
+            # marshalling burning the core; on the card it also counts the
+            # event wait's spin as cpu.
+            GLOBAL_PERF.ledger.record(
+                "codec", "encode-batch", dt, _time.thread_time() - rec.c0
+            )
             with self._stats_lock:
                 self.device_encode_seconds += dt
                 self.batches_run += 1
@@ -402,6 +415,7 @@ class BatchingDeviceCodec(BlockCodec):
             host_shards = self._staged((b_real, k + m, s_pad), hold)
             host_digests = self._staged((b_real, k + m, 32), hold)
             t0 = _time.perf_counter()
+            c0 = _time.thread_time()
             with self._on(stream):
                 shards, digests = pipe.encode_padded(host_in, shard_lens)
                 host_shards.copy_(shards[:b_real], non_blocking=True)
@@ -409,6 +423,9 @@ class BatchingDeviceCodec(BlockCodec):
             if stream is not None:
                 stream.synchronize()
             dt = _time.perf_counter() - t0
+            GLOBAL_PERF.ledger.record(
+                "codec", "encode-batch-small", dt, _time.thread_time() - c0
+            )
             with self._stats_lock:
                 self.device_encode_seconds += dt
                 self.small_batches_run += 1
@@ -433,6 +450,12 @@ class BatchingDeviceCodec(BlockCodec):
     # -- BlockCodec interface -------------------------------------------------
 
     def encode(self, blocks, k, m):
+        with tracing.span(
+            "erasure.encode", "erasure", blocks=len(blocks), k=k, m=m
+        ):
+            return self._encode(blocks, k, m)
+
+    def _encode(self, blocks, k, m):
         """Full blocks join the full-block batch, every shorter block the
         small-object batch; both run on the device."""
         futures: list[Future] = []
@@ -459,23 +482,38 @@ class BatchingDeviceCodec(BlockCodec):
         decode path the reference runs per block, cmd/erasure-decode.go:206):
         one padded-batch program per group of one loss pattern and one chunk
         length -- a window's full blocks, then its short tail -- with the
-        results in the caller's order."""
-        pipe = self._pipe(k, m)
-        stream = self._stream()
-        t0 = _time.perf_counter()
-        with self._on(stream):
-            out, groups = reconstruct_groups(pipe, rows_batch, k, tuple(want), with_digests)
-        dt = _time.perf_counter() - t0
-        with self._stats_lock:
-            self.device_recon_seconds += dt
-            self.recon_batches_run += groups
-            self.blocks_reconstructed += len(rows_batch)
-        return out
+        results in the caller's order. One ledger record per call, however
+        many groups it ran."""
+        with tracing.span(
+            "erasure.reconstruct", "erasure", blocks=len(rows_batch), k=k, m=m
+        ):
+            pipe = self._pipe(k, m)
+            stream = self._stream()
+            t0 = _time.perf_counter()
+            c0 = _time.thread_time()
+            with self._on(stream):
+                out, groups = reconstruct_groups(pipe, rows_batch, k, tuple(want), with_digests)
+            dt = _time.perf_counter() - t0
+            GLOBAL_PERF.ledger.record(
+                "codec", "reconstruct-batch", dt, _time.thread_time() - c0
+            )
+            with self._stats_lock:
+                self.device_recon_seconds += dt
+                self.recon_batches_run += groups
+                self.blocks_reconstructed += len(rows_batch)
+            return out
 
     def digests_batch(self, chunks):
         """GET-verify and heal-verify digests on the device: one hash launch
-        per distinct chunk length, results in the caller's order."""
-        return digests_by_length(chunks, self._hash_rows)
+        per distinct chunk length, results in the caller's order. One ledger
+        record per call, closed after the last launch's stream sync."""
+        t0 = _time.perf_counter()
+        c0 = _time.thread_time()
+        out = digests_by_length(chunks, self._hash_rows)
+        GLOBAL_PERF.ledger.record(
+            "codec", "verify-batch", _time.perf_counter() - t0, _time.thread_time() - c0
+        )
+        return out
 
     def _hash_rows(self, rows: list, length: int) -> list[bytes]:
         """[n] equal-length rows -> their digests: staged into one pinned

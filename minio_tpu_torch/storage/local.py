@@ -26,19 +26,27 @@ mirroring the reference's drive-sync discipline:
                    crash at any boundary; the staging appends stay unsynced.
   * ``always``  -- additionally fdatasync every shard append as it lands
                    (the O_DSYNC-style mode; what `LocalDrive(fsync=True)`
-                   always did).
+                   always did, now metered).
   * ``never``   -- no barriers anywhere: for benchmarking the sync cost and
                    for tests on tmpfs.
 
-All writes are plain buffered ``os`` calls.
+Every barrier is metered as the ("storage", "drive-sync") perf-ledger stage
+so a run shows what durability costs. Crash points (chaos/crash.py) sit on
+the two storage-internal boundaries -- after the data-dir rename / before
+xl.meta, and after the staged xl.meta / before os.replace -- plus the
+mid-writev torn-write hook in append_iov. All writes are plain buffered
+``os`` calls.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-import threading
+import time
 
+from ..chaos import crash
+from ..control.perf import GLOBAL_PERF
+from ..control.sanitizer import san_rlock
 from ..utils import errors
 from .format import SYS_DIR, DriveFormat
 from .interface import StorageAPI
@@ -61,8 +69,11 @@ def fsync_mode() -> str:
 
 
 def _sync_fd(fd: int, *, datasync: bool = True) -> None:
-    """Sync barrier: fdatasync (data) or fsync (data + metadata)."""
+    """Metered sync barrier: every fdatasync/fsync the durability discipline
+    issues lands in the ("storage", "drive-sync") ledger stage."""
+    t0 = time.perf_counter()
     (os.fdatasync if datasync else os.fsync)(fd)
+    GLOBAL_PERF.ledger.record("storage", "drive-sync", time.perf_counter() - t0)
 
 
 def _sync_path(p: str, *, datasync: bool = True) -> None:
@@ -109,7 +120,7 @@ class LocalDrive(StorageAPI):
         self.root = os.path.abspath(root)
         self.fsync = fsync
         # RLock: delete_version (marker path) re-enters write_metadata.
-        self._meta_lock = threading.RLock()
+        self._meta_lock = san_rlock("LocalDrive._meta_lock")
         self._disk_id: str | None = None
         os.makedirs(os.path.join(self.root, TMP_DIR), exist_ok=True)
         os.makedirs(os.path.join(self.root, BUCKETS_META_DIR), exist_ok=True)
@@ -217,10 +228,13 @@ class LocalDrive(StorageAPI):
             barrier=self._mode() == FSYNC_ALWAYS,
         )
 
-    def _write_all(self, p: str, data: bytes, barrier: bool) -> None:
+    def _write_all(
+        self, p: str, data: bytes, barrier: bool, commit_point: str | None = None
+    ) -> None:
         """Atomic whole-file write: stage `<p>.tmp<rand>`, optionally
         fdatasync it, os.replace into place, optionally fsync the parent so
-        the replace is durable."""
+        the replace is durable. `commit_point` names the crash point fired
+        between the durable staged image and the publishing replace."""
         tmp = p + ".tmp" + os.urandom(4).hex()
         try:
             f = open(tmp, "wb")
@@ -232,6 +246,8 @@ class LocalDrive(StorageAPI):
             if barrier:
                 f.flush()
                 _sync_fd(f.fileno())
+        if commit_point is not None:
+            crash.crash_point(commit_point, self.root)
         os.replace(tmp, p)
         if barrier:
             _sync_dir(os.path.dirname(p))
@@ -304,7 +320,13 @@ class LocalDrive(StorageAPI):
 
     def append_iov(self, volume: str, path: str, iovecs: list) -> None:
         """Gathered append: the whole group's digest/chunk views go down in
-        one os.writev (releases the GIL) instead of per-block appends."""
+        one os.writev (releases the GIL) instead of per-block appends.
+
+        The torn-write crash point lives here: an armed spec truncates the
+        LAST iovec at a seeded offset before the writev -- the at-rest state
+        a power-cut / SIGKILL mid-writev leaves -- then either dies
+        (torn-kill) or returns normally (torn: silent corruption the bitrot
+        digests must catch on read)."""
         p = self._file_path(volume, path)
         try:
             fd = os.open(p, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
@@ -313,6 +335,15 @@ class LocalDrive(StorageAPI):
             fd = os.open(p, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
         try:
             vecs = [memoryview(v) for v in iovecs if len(v)]
+            torn_kill = False
+            if vecs:
+                hint = crash.torn_hint(
+                    "storage.append-iov.torn", self.root, len(vecs[-1])
+                )
+                if hint is not None:
+                    cut, torn_kill = hint
+                    vecs[-1] = vecs[-1][:cut]
+                    vecs = [v for v in vecs if len(v)]
             while vecs:
                 written = os.writev(fd, vecs)
                 # Short writev: drop fully-written vecs, trim the partial one.
@@ -321,6 +352,8 @@ class LocalDrive(StorageAPI):
                     vecs.pop(0)
                 if written:
                     vecs[0] = vecs[0][written:]
+            if torn_kill:
+                crash.die()
             if self._mode() == FSYNC_ALWAYS:
                 _sync_fd(fd)
         finally:
@@ -376,10 +409,13 @@ class LocalDrive(StorageAPI):
 
     def _write_xl(self, volume: str, path: str, data: bytes) -> None:
         """Publish a new xl.meta image: the commit point of every version
-        change. Barriered in `commit` and `always` modes."""
+        change. Barriered in `commit` and `always` modes, with the
+        storage.xlmeta.pre-replace crash point between the durable staged
+        image and the os.replace that makes it visible."""
         self._write_all(
             self._meta_path(volume, path), data,
             barrier=self._mode() != FSYNC_NEVER,
+            commit_point="storage.xlmeta.pre-replace",
         )
 
     def read_xl(self, volume: str, path: str) -> XLMeta:
@@ -470,6 +506,7 @@ class LocalDrive(StorageAPI):
             if barrier:
                 _sync_dir(dst_obj_dir)
             src_parent = os.path.dirname(src)
+        crash.crash_point("storage.rename-data.pre-meta", self.root)
         self.write_metadata(dst_volume, dst_path, fi)
         # The rename consumed tmp/<stage-id>/<i>; drop the now-empty
         # <stage-id> parent so committed PUTs leave tmp/ clean (it used to

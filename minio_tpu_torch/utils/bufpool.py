@@ -19,18 +19,24 @@ reports zero outstanding buffers.
 from __future__ import annotations
 
 import os
-import threading
+
+from ..control import bufsan as _bufsan
+from ..control.sanitizer import san_lock
 
 
 class PooledBuffer:
     """A refcounted bytearray window handed out by a BufferPool."""
 
-    __slots__ = ("data", "_pool", "_refs")
+    # __weakref__ lets the armed bufsan (control/bufsan.py) hang a leak
+    # detector off every handle; _san is its per-handle shadow state (None
+    # when disarmed: one attribute, no behavior change).
+    __slots__ = ("data", "_pool", "_refs", "_san", "__weakref__")
 
     def __init__(self, data: bytearray, pool: "BufferPool | None"):
         self.data = data
         self._pool = pool
         self._refs = 1
+        self._san = None
 
     def __len__(self) -> int:
         return len(self.data)
@@ -53,6 +59,9 @@ class PooledBuffer:
                 " -- a 0-byte buffer is one whose last release already"
                 " recycled the storage"
             )
+        san = _bufsan.ACTIVE
+        if san is not None:
+            san.note_view(self)
         return memoryview(self.data)[start:stop]
 
     def retain(self) -> "PooledBuffer":
@@ -99,6 +108,9 @@ class PooledBuffer:
             return
         with pool._lock:
             if self._refs <= 0:
+                san = _bufsan.ACTIVE
+                if san is not None:
+                    san.note_double_release(self)
                 raise RuntimeError("release() on an already-released PooledBuffer")
             self._refs -= 1
             if self._refs == 0:
@@ -131,7 +143,7 @@ class BufferPool:
         self.buf_size = buf_size
         self.capacity = capacity
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = san_lock("BufferPool._lock")
         self._free: list[bytearray] = []
         self._outstanding = 0
         self._gets = 0
@@ -164,11 +176,16 @@ class BufferPool:
                 storage = self._free.pop()
             elif self._outstanding > self.capacity or want > self.buf_size:
                 self._overflow += 1
+        reused = storage is not None
         if storage is None:
             # Allocation happens outside the lock: a multi-MiB bytearray fill
             # is not something to serialize the whole data plane behind.
             storage = bytearray(self.buf_size if want <= self.buf_size else want)
-        return PooledBuffer(storage, self)
+        pb = PooledBuffer(storage, self)
+        san = _bufsan.ACTIVE
+        if san is not None:
+            san.note_acquire(pb, self.name, reused)
+        return pb
 
     def _recycle_locked(self, pb: PooledBuffer, discard: bool = False) -> None:
         self._outstanding -= 1
@@ -180,6 +197,13 @@ class BufferPool:
         )
         if discard:
             self._discards += 1
+        san = _bufsan.ACTIVE
+        if san is not None:
+            # Before the storage can be handed to anyone else: probe for
+            # views that outlive this buffer, then sentinel-poison what goes
+            # back on the free list. (A discarded storage is never reused,
+            # so its lingering traceback-pinned views are harmless.)
+            san.note_recycle(pb, storage, pooled)
         if pooled:
             self._free.append(storage)
         pb.data = bytearray(0)  # poison: stale views see an empty buffer
@@ -211,7 +235,7 @@ class BufferPool:
 WINDOW_BYTES = 16 * (1 << 20)
 
 _GLOBAL: BufferPool | None = None
-_global_lock = threading.Lock()
+_global_lock = san_lock("bufpool._global_lock")
 
 
 def window_pool() -> BufferPool:

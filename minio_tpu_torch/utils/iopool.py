@@ -11,16 +11,17 @@ The PUT fan-out needs two properties at once:
 LanePool provides both: submissions carry a lane key (the drive index) and
 are queued per lane; a lane is drained by at most one worker at a time, in
 submission order, on a shared ThreadPoolExecutor. Workers hold buffers, not
-locks: the pool lock guards only the tiny queue bookkeeping, never I/O.
+locks: the pool lock guards only the tiny queue bookkeeping, never I/O
+(mtpusan's lock-blocking-io rule holds this file to that).
 """
 
 from __future__ import annotations
 
 import os
-import threading
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 
+from ..control.sanitizer import san_lock
 
 
 class LanePool:
@@ -28,7 +29,7 @@ class LanePool:
 
     def __init__(self, workers: int, name: str = "drive-io-lane"):
         self._ex = ThreadPoolExecutor(max_workers=workers, thread_name_prefix=name)
-        self._lock = threading.Lock()
+        self._lock = san_lock("LanePool._lock")
         self._lanes: dict = {}     # lane -> deque[(fn, args, Future)]
         self._active: set = set()  # lanes currently owned by a drain worker
 
@@ -68,7 +69,7 @@ class LanePool:
 
 
 _SHARED: LanePool | None = None
-_shared_lock = threading.Lock()
+_shared_lock = san_lock("iopool._shared_lock")
 
 
 def shard_writer_pool() -> LanePool:

@@ -493,6 +493,19 @@ def test_import_checks_cover_the_s3_front():
         assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
 
 
+def test_import_checks_cover_the_fault_plane():
+    mods = _port_modules()
+    for m in (
+        "control.sanitizer", "control.pubsub", "control.logging", "control.perf",
+        "control.tracing", "control.degrade", "control.profiler", "control.bufsan",
+        "chaos.faults", "chaos.crash", "chaos", "storage.metered", "chaos.disk",
+        "storage.breaker", "storage.recovery",
+    ):
+        assert f"minio_tpu_torch.{m}" in mods
+        rel = m.replace(".", "/") + ("/__init__.py" if m == "chaos" else ".py")
+        assert (PORT / rel) in sorted(PORT.rglob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"
