@@ -111,8 +111,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      size law, one in 8 REDUCED_REDUNDANCY); both kernels;
    - http_get: those 512 and 512 of phase 5's surviving objects in pool 0
      (pool 1's lost one drive's copy to phase 5's heal_bucket check),
-     byte-exact; hh256 and no rs_gf_apply. Every HTTP-PUT object then also
-     reads back byte-identical through layer.get_object;
+     byte-exact; hh256, and rs_gf_apply only for windows where a hedged
+     spare read beat a slow primary (at most 2 launches a winning hedge).
+     Every HTTP-PUT object then also reads back byte-identical through
+     layer.get_object;
    - http_big: one 128 MiB aws-chunked PUT, a 128 MiB multipart upload of
      16 x 8 MiB parts from 4 threads (ETag "-16"), a GET of both; both
      kernels;
@@ -1775,8 +1777,16 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
         paths["http_get"] = tally.read("http_get", need=("hh256",))
         _no_host_fallback(codec, "http_get")
         report("http_get", res, n_put + len(olds), before, ["pools_get"])
-        if paths["http_get"]["launches"]["rs_gf_apply"]:
-            raise AssertionError(f"http_get launched rs_gf_apply: {paths['http_get']['rs_gf_apply_by_b_r']}")
+        # A healthy GET rebuilds nothing from the data: a reconstruct is
+        # only due where a hedged spare read beat a slow primary (the
+        # window then decodes from the spare), at most one group for the
+        # window's full blocks and one for its tail.
+        rs, wins = paths["http_get"]["launches"]["rs_gf_apply"], planes.degrade_delta()["hedge_wins"]
+        if rs > 2 * wins:
+            raise AssertionError(f"http_get launched rs_gf_apply {paths['http_get']['rs_gf_apply_by_b_r']} "
+                                 f"with {wins} winning hedges")
+        if rs:
+            log(f"http_get: {rs} rs_gf_apply launches, for {wins} hedged reads that beat their primary")
         same = _in_threads(lambda n: layer.get_object("bench", n)[1] == new.data[n], new.names, threads)
         if not all(same):
             raise AssertionError(f"layer.get_object of HTTP-PUT objects: {same.count(False)} differ")
