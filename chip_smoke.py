@@ -168,8 +168,42 @@ Phases, each of which raises on failure (the script then exits non-zero):
      byte-exact, no stage debris is left, and the acknowledged object reads
      byte-exact with 4 drives' part files removed.
 
+8. Boot on the card (dist/node.py, runtime.py, the probe child, api/admin.py,
+   cli.py), after phase 7; each part raises on failure and prints its
+   seconds:
+   - 8a, in process: a port Node over 16 wrapped drives (drive00..drive15)
+     with no codec=: build() runs the real probe child, whose verdict must
+     read PROBE_OK gpu after it held both kernels against their plain
+     versions and the boot goldens, and installs the batching codec;
+     make_app() is served by cli._run_app_until to phase 6's client
+     process. Paths, each with its launch counts reset before and read
+     after (no host-codec or plain-version call): boot_put (64 objects of
+     phase 5's size law and one 64 MiB object), boot_get (byte-exact),
+     boot_degraded_get (the part files of drives 0, 5, 10, 15 removed),
+     boot_heal (admin /heal; the part files come back byte-identical to the
+     removed ones), boot_mrf (one 4 MiB PUT while /chaos fails drive07's
+     next rename_data; the MRF heals it). Admin /perf must show the probe
+     ok on platform gpu.
+   - 8b, the real CLI: python3 -m minio_tpu_torch server --json over
+     <root>/boot/p0/drive{00...31} and <root>/boot/p1/drive{00...15}
+     (48 drives, two pools, three 12+4 sets): the online line must name
+     BatchingDeviceCodec, 48 drives, 2 pools, 3 sets; the seconds from the
+     spawn to online and to the first 200 PUT (503 before it); 256 objects
+     of phase 5's size law from 16 threads and one 128 MiB aws-chunked PUT,
+     read back byte-exact; /perf's stage ledger with codec encode-batch and
+     verify-batch records and the probe on gpu; a user added over admin;
+     SIGTERM rc 0 within 15 s; a restart, booted with
+     MTPU_CRASH=put.mid-commit:kill:8, reads every object back and the user
+     signs in, then dies with rc 137 on a 4 MiB PUT; the next boot's
+     recovery scan leaves the victim absent or whole, every acknowledged
+     object byte-exact and no stage debris on the 48 drives.
+   - 8c, the card hidden: CUDA_VISIBLE_DEVICES= with the codec on auto
+     exits non-zero with FATAL and the probe's error within the probe
+     timeout (60 s) plus 10 s for the interpreter's start before serve
+     spawns the probe child, and no PUT ever answers 200.
+
 The line before the last is a JSON object describing each kernel, with its
-launches by path (phase 7's steps included); the last
+launches by path (phase 7's and phase 8a's included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 """
@@ -179,11 +213,13 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import contextlib
+import hashlib
 import itertools
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1623,8 +1659,28 @@ def _client_main(conn, endpoint: str) -> None:
         st, h, data, _ = send(method, path, query, headers, body, sign=sign, fresh=True, tamper=tamper)
         return st, h, data[:4096]
 
+    def admin(method: str, path: str, query=(), doc=None) -> tuple:
+        """A signed admin request with a JSON body; the whole answer, parsed
+        when it is JSON."""
+        body = json.dumps(doc).encode() if doc is not None else b""
+        st, h, data, _ = send(method, path, query, {}, body, fresh=True)
+        return st, json.loads(data) if h.get("content-type", "").startswith("application/json") else data[:4096]
+
+    def request_as(ak: str, sk: str, method: str, path: str, body=b"") -> tuple:
+        """One request signed with other credentials: (status, sha256 of the answer)."""
+        h = auth.sign_request(auth.Credentials(ak, sk), method, path, [], {"host": host}, body)
+        h.pop("host")
+        c = http.client.HTTPConnection(host, timeout=600)
+        try:
+            c.request(method, urllib.parse.quote(path), body=body, headers=h)
+            r = c.getresponse()
+            return r.status, hashlib.sha256(r.read()).hexdigest()
+        finally:
+            c.close()
+
     ops = {"register": register, "register_bytes": register_bytes, "put": put, "get": get,
-           "multipart": multipart, "list_v2": list_v2, "ranges": ranges, "delete": delete, "request": request}
+           "multipart": multipart, "list_v2": list_v2, "ranges": ranges, "delete": delete, "request": request,
+           "admin": admin, "request_as": request_as}
     while True:
         msg = conn.recv()
         if msg[0] == "stop":
@@ -2190,6 +2246,455 @@ def phase_faults(smi: str, root: str, codec, tally: Tally, rates: dict, device: 
     return paths
 
 
+# -- phase 8: boot on the card -----------------------------------------------------------------
+
+BOOT_LOST = (0, 5, 10, 15)  # 8a: the drives whose part files are removed, then healed
+BOOT_MRF_DRIVE = 7  # 8a: the drive whose next commit rename fails through /chaos
+CRASH_BOOT = "put.mid-commit:kill:8"
+ADMIN_PREFIX = "/mtpu/admin/v1"
+BOOT_USER = ("bootuser", "boot-user-secret-key")
+
+
+def _part_tree(root: str, bucket: str = "bench") -> dict:
+    """{relative path: bytes} of every part file under one drive's bucket."""
+    out = {}
+    base = os.path.join(root, bucket)
+    for dirpath, _, files in os.walk(base):
+        for f in files:
+            if f.startswith("part."):
+                out[os.path.relpath(os.path.join(dirpath, f), base)] = _read(os.path.join(dirpath, f))
+    return out
+
+
+def _wait_for(pred, timeout: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _heal_until_done(client, timeout: float = 300.0) -> dict:
+    st, doc = client.call("admin", "POST", f"{ADMIN_PREFIX}/heal", (), {"bucket": "bench"})
+    if st != 200:
+        raise AssertionError(f"admin /heal: {st} {doc}")
+    status: dict = {}
+
+    def done():
+        nonlocal status
+        code, status = client.call("admin", "GET", f"{ADMIN_PREFIX}/heal/{doc['healSequence']}")
+        return code == 200 and not status["running"]
+
+    _wait_for(done, timeout, "the admin heal sequence")
+    return status
+
+
+def _check_probe(perf: dict, device: str) -> None:
+    probe = perf["probe"]
+    if device == "cuda" and not (probe["done"] and probe["ok"] and probe["platform"] == "gpu"):
+        raise AssertionError(f"/perf probe: {probe}, want ok on platform gpu")
+
+
+def phase_boot_node(smi: str, root: str, tally: Tally, rates: dict, device: str = "cuda", n_objects: int = 64,
+                    big_mib: int = 64, mrf_mib: int = 4, max_size: int = 4 * MiB, threads: int = HTTP_THREADS) -> dict:
+    """8a: a port Node in this process over 16 wrapped drives, no codec=:
+    build() probes the card through the probe child and installs the
+    batching codec; make_app() is served by cli._run_app_until."""
+    from minio_tpu_torch import cli, runtime
+    from minio_tpu_torch.dist.node import Node
+
+    paths = {}
+    base = os.path.join(root, "boot_node")
+    dirs = [os.path.join(base, _drive_name(i)) for i in range(DRIVES)]
+    t0 = time.perf_counter()
+    node = Node(dirs, root_user=HTTP_CREDS[0], root_password=HTTP_CREDS[1], device=device)
+    app = node.make_app()
+    stop = threading.Event()
+    port = _free_port()
+    thread, errs = cli._run_app_until(app, "127.0.0.1", port, stop)
+    if errs:
+        raise AssertionError(f"8a: the app did not start: {errs}")
+    client = None
+    try:
+        node.build()
+        build_s = time.perf_counter() - t0
+        verdict = runtime.probe_status()
+        if device == "cuda":
+            if verdict is None or not verdict.ok or verdict.platform != "gpu" or "PROBE_OK gpu " not in verdict.detail:
+                raise AssertionError(f"8a: the probe child's verdict {verdict}")
+            log("8a probe child transcript: " + " | ".join(
+                ln for ln in verdict.detail.splitlines() if ln.startswith(("[probe]", "PROBE_OK"))))
+        codec = node.codec
+        if type(codec).__name__ != "BatchingDeviceCodec" or codec.device.type != device:
+            raise AssertionError(f"8a: the node serves {type(codec).__name__} on {getattr(codec, 'device', '?')}")
+        log(f"8a Node.build over {DRIVES} wrapped drives with the probe in {build_s:.2f} s: "
+            f"{type(codec).__name__} on {codec.device}; verdict {verdict}")
+        client = HttpClient(f"http://127.0.0.1:{port}")
+        st, _, _ = client.call("request", "PUT", "/bench")
+        if st != 200:
+            raise AssertionError(f"8a: make bucket {st}")
+        n = client.call("register", 80, n_objects, max_size, "boot")
+        client.call("register_bytes", "boot/big", 81, big_mib * MiB)
+        traffic = Traffic(80, n, max_size, "boot")
+        names = traffic.names + ["boot/big"]
+        nbytes = int(sum(traffic.sizes)) + big_mib * MiB
+        del traffic
+
+        def run(path: str, fn, need=("rs_gf_apply", "hh256")):
+            tally.reset()
+            t = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t
+            paths[path] = tally.read(path, need)
+            _no_host_fallback(codec, path)
+            return res, wall
+
+        res, wall = run("boot_put", lambda: client.call("put", names, {}, threads))
+        log(f"8a boot_put: {len(names)} objects ({nbytes / MiB:.1f} MiB) {len(names) / wall:.1f} objects/s, "
+            f"{nbytes / 2**30 / wall:.4f} GiB/s, p50 {_percentile(res['latencies'], 50):.3f} s [{smi}]")
+        res, wall = run("boot_get", lambda: client.call("get", names, threads), need=("hh256",))
+        log(f"8a boot_get: {len(names) / wall:.1f} objects/s, {nbytes / 2**30 / wall:.4f} GiB/s [{smi}]")
+        side = "; ".join(f"{k} {rates[k]['objects_per_s']:.1f} objects/s, {rates[k]['gib_per_s']:.4f} GiB/s"
+                         for k in ("pools_put_pool0", "pools_get", "http_put", "http_get") if k in rates)
+        log(f"8a direct layer and phase 6, same run: {side}")
+
+        kept = {i: _part_tree(dirs[i]) for i in BOOT_LOST}
+        removed = sum(len(v) for v in kept.values())
+        for i in BOOT_LOST:
+            for rel in kept[i]:
+                os.remove(os.path.join(dirs[i], "bench", rel))
+        res, wall = run("boot_degraded_get", lambda: client.call("get", names, threads))
+        log(f"8a boot_degraded_get with {removed} part files of drives {BOOT_LOST} removed: "
+            f"{len(names) / wall:.1f} objects/s, {nbytes / 2**30 / wall:.4f} GiB/s, byte-exact [{smi}]")
+        status, wall = run("boot_heal", lambda: _heal_until_done(client))
+        healed = {i: _part_tree(dirs[i]) for i in BOOT_LOST}
+        if healed != kept:
+            diff = [i for i in BOOT_LOST if healed[i] != kept[i]]
+            raise AssertionError(f"8a admin heal: the part files of drives {diff} differ from the removed ones")
+        log(f"8a boot_heal through admin /heal in {wall:.2f} s: {json.dumps(status)}; the {removed} part files "
+            f"are byte-identical to the removed ones")
+
+        client.call("register_bytes", "boot/mrf", 82, mrf_mib * MiB)
+        healed0 = node.mrf.healed
+
+        def mrf():
+            st, doc = client.call("admin", "POST", f"{ADMIN_PREFIX}/chaos", (),
+                                  {"kind": "drive-error", "target": _drive_name(BOOT_MRF_DRIVE),
+                                   "ops": ["rename_data"], "count": 1})
+            if st != 200:
+                raise AssertionError(f"8a /chaos arm: {st} {doc}")
+            try:
+                client.call("put", ["boot/mrf"], {}, 1)
+            finally:
+                client.call("admin", "DELETE", f"{ADMIN_PREFIX}/chaos", [("fault-id", doc["fault_id"])])
+            return _wait_for(lambda: node.mrf.healed > healed0, 120, "the MRF heal")
+
+        waited, wall = run("boot_mrf", mrf)
+        client.call("get", ["boot/mrf"], 1)
+        if not os.path.isdir(os.path.join(dirs[BOOT_MRF_DRIVE], "bench", "boot", "mrf")):
+            raise AssertionError("8a: the MRF did not rewrite the failed drive's copy")
+        log(f"8a boot_mrf: the PUT under a /chaos drive-error on {_drive_name(BOOT_MRF_DRIVE)} was healed by "
+            f"the MRF {waited:.2f} s after its answer; MRF healed {node.mrf.healed}, failed {node.mrf.failed}")
+        st, perf = client.call("admin", "GET", f"{ADMIN_PREFIX}/perf")
+        if st != 200:
+            raise AssertionError(f"8a /perf: {st}")
+        _check_probe(perf, device)
+        log(f"8a /perf probe: {json.dumps(perf['probe'])}")
+    finally:
+        if client is not None:
+            client.close()
+        stop.set()
+        thread.join(10)
+        node.close()
+        Node.close_all()
+        runtime.shutdown_data_plane()
+    shutil.rmtree(base, ignore_errors=True)
+    return paths
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class CliServer:
+    """One `python3 -m minio_tpu_torch server` process; a reader thread
+    keeps its output lines with their times since spawn."""
+
+    def __init__(self, args: list, port: int, env: dict | None = None):
+        self.port = port
+        full = dict(os.environ, MINIO_ROOT_USER=HTTP_CREDS[0], MINIO_ROOT_PASSWORD=HTTP_CREDS[1])
+        full.pop("MINIO_TPU_CODEC", None)
+        full.pop("MTPU_CRASH", None)
+        full.update(env or {})
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "minio_tpu_torch", "server", "--json", "--address", f"127.0.0.1:{port}", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=full, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines: list = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter() - self.t0, line.rstrip("\n")))
+
+    def online(self, timeout: float = 300.0) -> tuple[float, dict]:
+        def up():
+            if self.proc.poll() is not None:
+                raise AssertionError(f"the server exited {self.proc.returncode}: {self.text()[-3000:]}")
+            return any('"msg": "online"' in ln for _, ln in self.lines)
+
+        _wait_for(up, timeout, "the server's online line")
+        t, ln = next((t, ln) for t, ln in self.lines if '"msg": "online"' in ln)
+        return t, json.loads(ln)
+
+    def first_put_200(self, timeout: float = 300.0) -> tuple[float | None, list]:
+        """Poll a signed PUT of the bucket from the spawn on: (seconds to
+        the first 200, or None if the server exited first; every status
+        seen before it)."""
+        from minio_tpu_torch.api import auth
+
+        seen = []
+        while time.perf_counter() - self.t0 < timeout:
+            if self.proc.poll() is not None:
+                return None, seen
+            try:
+                st = _signed_status(self.port, "PUT", "/bench", auth)
+            except OSError:
+                st = None
+            if st == 200:
+                return time.perf_counter() - self.t0, seen
+            if st is not None:
+                seen.append(st)
+            time.sleep(0.05)
+        raise AssertionError(f"no 200 PUT within {timeout} s: {seen[-5:]}")
+
+    def text(self) -> str:
+        return "\n".join(ln for _, ln in self.lines)
+
+    def stop(self, timeout: float = 15.0) -> tuple[int, float]:
+        t = time.perf_counter()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+            raise AssertionError(f"the server did not exit within {timeout} s of SIGTERM")
+        self._reader.join(5)
+        return rc, time.perf_counter() - t
+
+
+def _signed_status(port: int, method: str, path: str, auth) -> int:
+    import http.client
+
+    h = auth.sign_request(auth.Credentials(*HTTP_CREDS), method, path, [], {"host": f"127.0.0.1:{port}"}, b"")
+    h.pop("host")
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        c.request(method, path, body=b"", headers=h)
+        r = c.getresponse()
+        r.read()
+        return r.status
+    finally:
+        c.close()
+
+
+def reset_stages(client) -> None:
+    st, _ = client.call("admin", "GET", f"{ADMIN_PREFIX}/perf", [("reset", "1")])
+    if st != 200:
+        raise AssertionError(f"/perf?reset=1: {st}")
+
+
+def server_stages(client, label: str) -> dict:
+    """The server's stage ledger since the last reset, for the stages that
+    carry a path's time, and its GIL load; returns the /perf document."""
+    st, perf = client.call("admin", "GET", f"{ADMIN_PREFIX}/perf")
+    if st != 200:
+        raise AssertionError(f"{label}: /perf {st}")
+    stages = perf["node"]["stages"]
+    keep = {f"{layer}/{stage}": {k: rec[k] for k in ("count", "p50_ms", "p99_ms", "total_ms", "cpu_seconds")}
+            for layer, recs in sorted(stages.items()) for stage, rec in sorted(recs.items())
+            if layer in ("api", "codec") or stage in ("object.PutObject", "object.GetObject", "encode", "commit",
+                                                     "shard-read", "frame-parse", "decode")}
+    st, prof = client.call("admin", "GET", f"{ADMIN_PREFIX}/profile", [("summary", "1")])
+    gil = prof.get("gil_load") if st == 200 and isinstance(prof, dict) else None
+    log(f"{label} server stage ledger: {json.dumps(keep)}; gil_load {gil}")
+    return perf
+
+
+def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_objects: int = 256,
+                   big_mib: int = 128, crash_mib: int = 4, max_size: int = 4 * MiB,
+                   threads: int = HTTP_THREADS) -> None:
+    """8b: the real CLI over 48 drives in two pools (32 + 16, three 12+4
+    sets): boot, traffic, SIGTERM, restart, a crash and the recovery boot."""
+    base = os.path.join(root, "boot")
+    args = [os.path.join(base, "p0", "drive{00...31}"), os.path.join(base, "p1", "drive{00...15}")]
+    if device == "cpu":
+        args = ["--device", "cpu", *args]
+    drive_dirs = [os.path.join(base, "p0", f"drive{i:02d}") for i in range(32)] + \
+                 [os.path.join(base, "p1", f"drive{i:02d}") for i in range(16)]
+    port = _free_port()
+    srv = CliServer(args, port)
+    client = None
+    try:
+        first_put_s, before = srv.first_put_200()
+        if first_put_s is None:
+            raise AssertionError(f"8b: the server exited {srv.proc.returncode}: {srv.text()[-3000:]}")
+        online_s, online = srv.online()
+        want = {"codec": "BatchingDeviceCodec", "drives": 48, "pools": 2, "sets": 3}
+        if {k: online.get(k) for k in want} != want:
+            raise AssertionError(f"8b online line {online}, want {want}")
+        if 200 in before or set(before) - {503}:
+            raise AssertionError(f"8b: answers before the first 200 PUT: {before}")
+        log(f"8b CLI boot: online {online_s:.2f} s after spawn, first 200 PUT {first_put_s:.2f} s "
+            f"({len(before)} answers 503 before it); online line {json.dumps(online)} [{smi}]")
+        client = HttpClient(f"http://127.0.0.1:{port}")
+        n = client.call("register", 90, n_objects, max_size, "cli")
+        client.call("register_bytes", "cli/big", 91, big_mib * MiB)
+        traffic = Traffic(90, n, max_size, "cli")
+        names, nbytes = traffic.names, int(sum(traffic.sizes))
+        reset_stages(client)
+        res = client.call("put", names, {}, threads)
+        log(f"8b PUT {n} objects ({nbytes / MiB:.1f} MiB) from {threads} threads: {n / res['wall']:.1f} objects/s, "
+            f"{nbytes / 2**30 / res['wall']:.4f} GiB/s, p50 {_percentile(res['latencies'], 50):.3f} s [{smi}]")
+        big = client.call("put", ["cli/big"], {}, 1)
+        log(f"8b PUT {big_mib} MiB aws-chunked: {big_mib / 1024 / big['wall']:.4f} GiB/s [{smi}]")
+        codec_stages = server_stages(client, "8b PUT (both)")["node"]["stages"].get("codec", {})
+        if not codec_stages.get("encode-batch", {}).get("count"):
+            raise AssertionError(f"8b: /perf has no codec encode-batch record after the PUTs: {codec_stages}")
+        reset_stages(client)
+        res = client.call("get", names + ["cli/big"], threads)
+        log(f"8b GET {n + 1} objects byte-exact: {(n + 1) / res['wall']:.1f} objects/s, "
+            f"{res['bytes'] / 2**30 / res['wall']:.4f} GiB/s, p50 {_percentile(res['latencies'], 50):.3f} s [{smi}]")
+        perf = server_stages(client, "8b GET")
+        if not perf["node"]["stages"].get("codec", {}).get("verify-batch", {}).get("count"):
+            raise AssertionError("8b: /perf has no codec verify-batch record after the GETs")
+        side = "; ".join(f"{k} {rates[k]['objects_per_s']:.1f} objects/s, {rates[k]['gib_per_s']:.4f} GiB/s"
+                         for k in ("pools_put_pool0", "pools_get", "http_put", "http_get") if k in rates)
+        log(f"8b direct layer and phase 6, same run: {side}")
+        _check_probe(perf, device)
+        log(f"8b /perf probe {json.dumps(perf['probe'])}")
+        st, doc = client.call("admin", "POST", f"{ADMIN_PREFIX}/users", (),
+                              {"accessKey": BOOT_USER[0], "secretKey": BOOT_USER[1], "policies": ["readwrite"]})
+        if st != 200:
+            raise AssertionError(f"8b add user: {st} {doc}")
+        rc, stop_s = srv.stop()
+        if rc != 0:
+            raise AssertionError(f"8b SIGTERM: rc {rc}")
+        log(f"8b SIGTERM: rc 0 in {stop_s:.2f} s")
+
+        # The restart arms a crash point: its reads and the user's sign-in
+        # come first, then the victim's PUT kills it.
+        srv = CliServer(args, port, env={"MTPU_CRASH": CRASH_BOOT})
+        online_s, _ = srv.online()
+        res = client.call("get", names + ["cli/big"], threads)
+        first = names[0]
+        st, digest = client.call("request_as", *BOOT_USER, "GET", f"/bench/{first}")
+        if st != 200 or digest != hashlib.sha256(bytes(traffic.data[first])).hexdigest():
+            raise AssertionError(f"8b after the restart the user's GET answers {st}")
+        log(f"8b restart (MTPU_CRASH={CRASH_BOOT}): online {online_s:.2f} s after spawn; every object "
+            f"byte-exact ({(n + 1) / res['wall']:.1f} objects/s); the user signs in")
+        client.call("register_bytes", "cli/victim", 92, crash_mib * MiB)
+        try:
+            client.call("put", ["cli/victim"], {}, 1)
+            raise AssertionError(f"8b: the PUT under MTPU_CRASH={CRASH_BOOT} was answered")
+        except AssertionError as e:
+            if "was answered" in str(e):
+                raise
+        rc = srv.proc.wait(60)
+        srv._reader.join(5)
+        if rc != 137:
+            raise AssertionError(f"8b crash boot: rc {rc}, want 137: {srv.text()[-2000:]}")
+        srv = CliServer(args, port)
+        online_s, _ = srv.online()
+        st, _, body = client.call("request", "GET", "/bench/cli/victim")
+        victim = "absent" if st == 404 else None
+        if victim is None:
+            if st != 200:
+                raise AssertionError(f"8b recovery boot: the victim answers {st}")
+            client.call("get", ["cli/victim"], 1)
+            victim = "whole"
+        res = client.call("get", names + ["cli/big"], threads)
+        debris = [p for d in drive_dirs for p in _debris(d)]
+        rc, stop_s = srv.stop()
+        if debris or rc != 0:
+            raise AssertionError(f"8b recovery boot: rc {rc}, debris {debris[:8]}")
+        log(f"8b crash at {CRASH_BOOT} on a {crash_mib} MiB PUT: rc 137; the recovery boot was online "
+            f"{online_s:.2f} s after spawn, the victim is {victim}, the {n + 1} acknowledged objects are "
+            f"byte-exact ({(n + 1) / res['wall']:.1f} objects/s), no debris on the 48 drives; SIGTERM rc 0 "
+            f"in {stop_s:.2f} s")
+    finally:
+        if client is not None:
+            client.close()
+        if srv.proc.poll() is None:
+            srv.proc.kill()
+            srv.proc.wait(10)
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_boot_hidden(root: str) -> None:
+    """8c: the card hidden (CUDA_VISIBLE_DEVICES=) and the codec left on
+    auto: the boot fails within the probe timeout and no PUT answers 200.
+    The process may take `start_slack_s` more than the probe timeout: the
+    interpreter starts and imports the CLI before serve spawns the child."""
+    base = os.path.join(root, "hidden")
+    timeout_s, start_slack_s = 60.0, 10.0
+    srv = CliServer([os.path.join(base, "drive{00...15}")], _free_port(),
+                    env={"CUDA_VISIBLE_DEVICES": "", "MINIO_TPU_DEVICE_PROBE_S": str(timeout_s)})
+    try:
+        try:
+            t, seen = srv.first_put_200(timeout=timeout_s + start_slack_s)
+        except AssertionError as e:
+            raise AssertionError(f"8c: the server still runs {timeout_s + start_slack_s:.0f} s after spawn "
+                                 f"with the card hidden ({e})") from None
+        rc = srv.proc.wait(30)
+        elapsed = time.perf_counter() - srv.t0
+    finally:
+        if srv.proc.poll() is None:
+            srv.proc.kill()
+            srv.proc.wait(10)
+    srv._reader.join(5)
+    out = srv.text()
+    if t is not None or 200 in seen:
+        raise AssertionError(f"8c: a PUT answered 200 with the card hidden: {seen}")
+    if rc == 0 or "FATAL: node bootstrap failed: device probe failed" not in out or "no CUDA device" not in out:
+        raise AssertionError(f"8c: rc {rc}, output {out[-2000:]}")
+    if '"msg": "online"' in out:
+        raise AssertionError("8c: the server said online with the card hidden")
+    if elapsed >= timeout_s + start_slack_s:
+        raise AssertionError(f"8c: the boot failed {elapsed:.2f} s after spawn, past the probe timeout "
+                             f"{timeout_s:.0f} s and {start_slack_s:.0f} s for the interpreter's start")
+    log(f"8c card hidden: rc {rc} after {elapsed:.2f} s (probe timeout {timeout_s:.0f} s, "
+        f"+{start_slack_s:.0f} s start allowed); "
+        f"{len(seen)} PUTs answered {sorted(set(seen))} and none 200; "
+        + next(ln for ln in out.splitlines() if ln.startswith("FATAL")))
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_boot(smi: str, root: str, tally: Tally, rates: dict, device: str = "cuda", **sizes) -> dict:
+    t0 = time.perf_counter()
+    paths = phase_boot_node(smi, root, tally, rates, device, **sizes.get("node", {}))
+    log(f"8a done in {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    phase_boot_cli(smi, root, rates, device, **sizes.get("cli", {}))
+    log(f"8b done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_boot_hidden(root)
+    log(f"8c done in {time.perf_counter() - t:.1f} s; phase 8 took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2223,6 +2728,8 @@ def main() -> int:
             shutil.rmtree(os.path.join(root, d), ignore_errors=True)
         paths.update(phase_faults(smi, root, codec, tally, rates))
         log_phase_end("phase 7")
+        paths.update(phase_boot(smi, root, tally, rates))
+        log_phase_end("phase 8")
     finally:
         tally.uninstall()
         codec.close()

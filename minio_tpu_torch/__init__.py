@@ -12,10 +12,22 @@ unless the caller passes device="cpu", where the kernels' plain torch
 versions run instead.
 
 The package imports torch, numpy and the standard library only; it keeps
-its own copies of the host modules it needs.
+its own copies of the host modules it needs. ``python -m minio_tpu_torch
+server <drives>`` boots a server (cli.py).
 """
 
-from .object.pools import ServerPools
-from .object.sets import ErasureSets
-
 __all__ = ["ErasureSets", "ServerPools"]
+
+
+def __getattr__(name: str):
+    # Resolved on first use, so that `python -m minio_tpu_torch._probe_child`
+    # and the CLI import torch only when they reach for it.
+    if name == "ErasureSets":
+        from .object.sets import ErasureSets
+
+        return ErasureSets
+    if name == "ServerPools":
+        from .object.pools import ServerPools
+
+        return ServerPools
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

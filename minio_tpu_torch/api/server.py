@@ -68,8 +68,7 @@ _log = logging.getLogger(__name__)
 def _not_ported(route: str) -> S3Error:
     """The one answer of every route whose module this slice does not port
     (ROADMAP.md, Queue A item 8): "sts" (api/sts.py), "listen"
-    (control/events.py, api/streams.py), "select" (s3select) and
-    "compression" (control/config.py, read on PUT when a config is given).
+    (control/events.py, api/streams.py) and "select" (s3select).
     The error is the JAX front's bare NotImplemented, so a route that
     answers it there too (listen without a notifier) reads the same."""
     _log.debug("route not ported: %s", route)
@@ -1915,12 +1914,20 @@ class S3Server:
         return compression_on and compress_mod.is_compressible(key, opts.content_type)
 
     def _compression_on(self) -> bool:
-        """Whether the compression config is on. The JAX front reads it
-        from its config system (control/config.py), which is not ported:
-        with a config given, the PUT answers NotImplemented."""
-        if self.config is not None:
-            raise _not_ported("compression")
-        return False
+        """Whether the compression config (control/config.py) is on; a
+        config that cannot be read means off, as in the JAX front."""
+        if self.config is None:
+            return False
+        try:
+            from ..control.config import SUBSYS_COMPRESSION
+
+            return self.config.get_bool(SUBSYS_COMPRESSION, "enable")
+        except Exception as e:  # noqa: BLE001 - config read failure = feature off
+            GLOBAL_LOGGER.log_once(
+                f"compression config unreadable, treating as disabled: {e}",
+                key="compression-config",
+            )
+            return False
 
     def _check_quota(self, bucket: str, incoming: int) -> None:
         """Hard bucket quota (enforceBucketQuota, cmd/bucket-quota.go:112):

@@ -99,11 +99,7 @@ SUPPRESSIONS: tuple[tuple[str, str, str], ...] = (
     ("leaked-thread", "codec-warmup",
      "bounded one-shot device warmup (runtime.py); exits on its own"),
     ("leaked-thread", "codec-probe",
-     "bounded one-shot background probe (runtime.py); exits on its own"),
-    ("leaked-thread", "codec-reprobe",
-     "periodic recovery re-probe daemon (runtime.py): stopped by the "
-     "_reprobe_stop event in shutdown_data_plane; exits on first good "
-     "verdict"),
+     "bounded one-shot probe started by runtime.start_probe; exits on its own"),
     ("leaked-thread", "http-server",
      "uvicorn serving thread lives for the process (cli.py serve)"),
     ("leaked-thread", "pytest_timeout",

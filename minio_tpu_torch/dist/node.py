@@ -1,0 +1,489 @@
+"""Node bootstrap: endpoints -> drives -> format consensus -> full server.
+
+Role of the reference's server-main.go serverMain (:422) + endpoint.go
+CreateEndpoints (:538) + prepare-storage.go waitForFormatErasure, for one
+node over local drives: it opens each path as the metered, breaker-gated,
+fault-injectable drive stack, installs the data-plane codec (runtime.py:
+the device probe, then the batching codec on the card), reaches format.json
+quorum per pool (creating fresh formats when the pool is unformatted),
+assembles the erasure pools and the control plane, and serves S3 + admin on
+one port.
+
+Left for later, each at its site below: the storage, lock and peer REST
+routers, the dsync NamespaceLock and remote drives (ROADMAP.md, Queue A
+item 7); the pool manager, disk/memory caches, metrics, event targets, the
+scanner, TierConfigMgr, replication, site replication, the flight recorder,
+the console and the etcd IAM store (Queue A item 8).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import urllib.parse
+import weakref
+from dataclasses import dataclass
+
+from aiohttp import web
+
+from ..api.auth import Credentials
+from ..api.server import S3Server
+from ..control.iam import IAMSys
+from ..object import codec as codec_mod
+from ..object.pools import ServerPools
+from ..object.sets import ErasureSets
+from ..storage import format as fmt_mod
+from ..storage.interface import StorageAPI
+from ..storage.local import LocalDrive
+from ..utils import errors
+
+
+@dataclass
+class Endpoint:
+    url: str  # "" for pure-local path endpoints
+    path: str
+
+    @property
+    def is_local_path(self) -> bool:
+        return not self.url
+
+    @classmethod
+    def parse(cls, raw: str) -> "Endpoint":
+        if raw.startswith(("http://", "https://")):
+            u = urllib.parse.urlparse(raw)
+            return cls(url=f"{u.scheme}://{u.netloc}", path=u.path)
+        return cls(url="", path=raw)
+
+
+class Node:
+    # Every constructed node, for close_all() (weak: an abandoned node that
+    # never built threads may simply be collected).
+    _live: "weakref.WeakSet[Node]" = weakref.WeakSet()
+
+    def __init__(
+        self,
+        endpoints: list[str],
+        url: str = "",
+        root_user: str = "minioadmin",
+        root_password: str = "minioadmin",
+        set_drive_count: int | None = None,
+        parity: int | None = None,
+        rrs_parity: int | None = None,
+        region: str = "us-east-1",
+        codec: codec_mod.BlockCodec | None = None,
+        check_skew: bool = False,
+        device="cuda",
+    ):
+        Node._live.add(self)
+        self.url = url.rstrip("/")
+        # endpoints: flat list (one pool) or list of lists (server pools --
+        # each argument group is an independent pool, the reference's
+        # `minio server poolA{1...n} poolB{1...n}` expansion,
+        # cmd/endpoint-ellipses.go multi-arg pools).
+        if endpoints and isinstance(endpoints[0], (list, tuple)):
+            pool_specs = [list(p) for p in endpoints]
+        else:
+            pool_specs = [list(endpoints)]
+        self.pool_endpoints = [[Endpoint.parse(e) for e in pool] for pool in pool_specs]
+        self.endpoints = [ep for pool in self.pool_endpoints for ep in pool]
+        self.creds = Credentials(root_user, root_password)
+        self.region = region
+        self.codec = codec
+        self.device = device
+        self._own_codec = None  # the codec build() installed, closed by close()
+
+        from ..chaos.disk import FaultyDisk
+        from ..control.pubsub import GLOBAL_TRACE
+        from ..storage.breaker import HealthGatedDrive
+        from ..storage.metered import MeteredDrive
+
+        self.local_drives: dict[str, StorageAPI] = {}
+        self.pool_drives: list[list[StorageAPI]] = []
+        for pool in self.pool_endpoints:
+            drives: list[StorageAPI] = []
+            for ep in pool:
+                if not (ep.is_local_path or ep.url == self.url):
+                    # Remote drives go through the storage REST client
+                    # (dist/storage_rest.py), which is not ported.
+                    raise NotImplementedError(
+                        f"endpoint {ep.url}{ep.path} is not on this node: remote drives "
+                        "wait for dist/storage_rest.py (ROADMAP.md, Queue A item 7)"
+                    )
+                # Local drives are metered (per-API latency EWMAs + storage
+                # traces, xl-storage-disk-id-check.go role) over the circuit
+                # breaker + admission gate (storage/breaker.py) over the
+                # fault-injection seam (admin /chaos arms faults in the
+                # process-global registry; disarmed, FaultyDisk resolves to
+                # the inner bound method -- no extra frame). Breaker INSIDE
+                # the meter so fail-fast refusals are timed/counted;
+                # FaultyDisk inside the breaker so injected faults trip it
+                # exactly like kernel EIOs.
+                d = MeteredDrive(
+                    HealthGatedDrive(FaultyDisk(LocalDrive(ep.path))),
+                    trace=GLOBAL_TRACE,
+                )
+                self.local_drives[ep.path] = d
+                drives.append(d)
+            self.pool_drives.append(drives)
+        self.drives = [d for pool in self.pool_drives for d in pool]
+
+        # One set size must fit every pool (the reference requires per-pool
+        # divisibility too; set count may differ per pool).
+        self.set_drive_count = set_drive_count or _default_set_count(len(self.pool_drives[0]))
+        for pi, drives in enumerate(self.pool_drives):
+            if len(drives) % self.set_drive_count:
+                raise ValueError(
+                    f"pool {pi}: {len(drives)} drives not divisible into "
+                    f"sets of {self.set_drive_count}"
+                )
+        self.parity = parity
+        self.rrs_parity = rrs_parity
+
+        self.iam: IAMSys | None = None
+        self.s3: S3Server | None = None
+        self.pools: ServerPools | None = None
+        # Peer fan-out (dist/peer.py NotificationSys) waits for Queue A
+        # item 7; the admin routes skip it when it is None, as in a
+        # single-node JAX deployment.
+        self.notification = None
+
+    # -- format consensus ----------------------------------------------------
+
+    def _read_formats(self, drives) -> list[fmt_mod.DriveFormat | None]:
+        out: list[fmt_mod.DriveFormat | None] = []
+        for d in drives:
+            try:
+                raw = d.read_all(fmt_mod.SYS_DIR, fmt_mod.FORMAT_FILE)
+                out.append(fmt_mod.DriveFormat.from_json(raw.decode()))
+            except (errors.DiskError, errors.FileCorrupt):
+                out.append(None)
+        return out
+
+    def wait_for_format(
+        self,
+        timeout: float = 30.0,
+        drives: list | None = None,
+        deployment_id: str | None = None,
+    ) -> fmt_mod.DriveFormat:
+        """Reach format quorum for one pool's drives, creating fresh formats
+        if the whole pool is unformatted (prepare-storage.go role; the leader
+        that formats is the node owning the first endpoint, server-main.go:507,
+        which a single node always is). Pools after the first inherit the
+        cluster deployment id."""
+        drives = self.drives if drives is None else drives
+        deadline = time.monotonic() + timeout
+        while True:
+            formats = self._read_formats(drives)
+            n_fmt = sum(1 for f in formats if f is not None)
+            if n_fmt == 0:
+                n_sets = len(drives) // self.set_drive_count
+                fresh = fmt_mod.init_format(
+                    n_sets, self.set_drive_count, deployment_id=deployment_id
+                )
+                for d, f in zip(drives, fresh):
+                    try:
+                        d.write_all(fmt_mod.SYS_DIR, fmt_mod.FORMAT_FILE, f.to_json().encode())
+                    except errors.DiskError:
+                        pass
+                continue
+            if n_fmt > 0:
+                try:
+                    quorum = fmt_mod.quorum_format(formats)
+                except errors.StorageError:
+                    quorum = None
+                if quorum is not None:
+                    # Heal format onto unformatted drives that we can reach:
+                    # give each missing slot the id the quorum expects.
+                    flat_ids = [i for s in quorum.sets for i in s]
+                    for d, f in zip(drives, formats):
+                        if f is None and d.is_online():
+                            # Which slot is this drive? By position in the
+                            # endpoint list (the reference heals by position
+                            # too, format-erasure.go:783).
+                            idx = drives.index(d)
+                            if idx < len(flat_ids):
+                                healed = fmt_mod.DriveFormat(
+                                    deployment_id=quorum.deployment_id,
+                                    this_id=flat_ids[idx],
+                                    sets=quorum.sets,
+                                    distribution_algo=quorum.distribution_algo,
+                                )
+                                try:
+                                    d.write_all(
+                                        fmt_mod.SYS_DIR,
+                                        fmt_mod.FORMAT_FILE,
+                                        healed.to_json().encode(),
+                                    )
+                                    # Fresh drive joined: mark it for a
+                                    # background heal sweep (the reference
+                                    # drops .healing.bin at format-heal,
+                                    # background-newdisks-heal-ops.go:48).
+                                    from ..control.healmgr import mark_drive_for_healing
+
+                                    mark_drive_for_healing(d, healed.this_id)
+                                except errors.DiskError:
+                                    pass
+                    return quorum
+            if time.monotonic() > deadline:
+                raise errors.UnformattedDisk("format quorum not reached")
+            time.sleep(0.25)
+
+    # -- assembly ------------------------------------------------------------
+
+    def build(self) -> "Node":
+        layer_codec = self.codec
+        if self.codec is None:
+            # Install the served data-plane codec: on "cuda" the probe child
+            # must launch both kernels on the card, and a failed verdict
+            # raises here -- before the S3 front exists, so requests keep
+            # answering 503 and serve() exits FATAL. On "cpu" the batching
+            # codec runs the plain versions, as the caller asked. The layer
+            # is built with codec=None, so it resolves the process default.
+            from ..runtime import install_data_plane_codec
+
+            self.codec = self._own_codec = install_data_plane_codec(device=self.device)
+            layer_codec = None
+        else:
+            codec_mod.set_default_codec(self.codec)
+        # One ErasureSets per pool; pools after the first share the cluster
+        # deployment id (erasure-server-pool.go newErasureServerPools role).
+        pool_sets: list[ErasureSets] = []
+        dep_id: str | None = None
+        for pi, drives in enumerate(self.pool_drives):
+            quorum = self.wait_for_format(drives=drives, deployment_id=dep_id)
+            if dep_id is not None and quorum.deployment_id != dep_id:
+                # A pre-formatted pool from a DIFFERENT cluster must not be
+                # silently merged into this namespace (the reference rejects
+                # mismatched deployment ids at startup).
+                raise errors.UnformattedDisk(
+                    f"pool {pi} belongs to deployment {quorum.deployment_id}, "
+                    f"cluster is {dep_id}"
+                )
+            dep_id = dep_id or quorum.deployment_id
+            pool_sets.append(
+                ErasureSets.from_drives(
+                    list(drives), quorum, parity=self.parity, codec=layer_codec,
+                    pool_index=pi, rrs_parity=self.rrs_parity,
+                )
+            )
+        self.pools = ServerPools(pool_sets)
+        # The dsync NamespaceLock over local and remote lockers waits for
+        # dist/locks.py (Queue A item 7); the object layer keeps its local
+        # lock stripes.
+        self.iam = IAMSys(self.creds.access_key, self.creds.secret_key)
+        from ..control import kms as kms_mod
+        from ..control.kms import StaticKeyKMS, kms_from_env
+
+        # An explicitly configured KMS (env) is honored even if the crypto
+        # backend is missing -- failing loudly beats silently dropping the
+        # operator's encryption intent. The implicit ephemeral key, though,
+        # only exists to make SSE work out of the box; without the backend
+        # it can't, so run as a KMS-less node.
+        self.kms = kms_from_env()
+        if self.kms is None and kms_mod.AESGCM is not None:
+            self.kms = StaticKeyKMS()
+        # The pool manager (object/poolmgr.py: attach, decommission,
+        # rebalance and the persisted pool config) waits for Queue A item 8.
+
+        # Control plane assembly (newAllSubsystems role, server-main.go:451).
+        from ..control.config import ConfigStore, ConfigSys
+        from ..control.healmgr import HealManager, MRFQueue
+        from ..control.logging import GLOBAL_LOGGER
+        from ..control.pubsub import GLOBAL_TRACE
+
+        store = ConfigStore(self.pools)
+        self.config = ConfigSys(store)
+        try:
+            self.config.load()
+        except errors.StorageError:
+            pass
+        # IAM durability (iam-object-store.go role): users/policies persist
+        # through the erasure-backed config store (sealed with the root
+        # credential) and reload on boot. The etcd store (control/etcd.py)
+        # waits for Queue A item 8. A FAILED load (degraded quorum) disables
+        # persistence for this process instead of risking an empty snapshot
+        # overwriting the real one on the next mutation.
+        self.iam.store = store
+        try:
+            self.iam.load()
+        except errors.FileCorrupt:
+            # Unseal failure = wrong root credential, not a flaky drive.
+            # Booting anyway would silently serve with ZERO identities;
+            # fail loudly instead so the operator restores the credential.
+            raise
+        except errors.StorageError as e:
+            self.iam.store = None
+            GLOBAL_LOGGER.error(
+                f"IAM store (erasure config store) unreadable at boot ({e}); IAM "
+                "persistence DISABLED for this process -- identities created now "
+                "will not survive a restart. Restore the erasure config store and restart.",
+                exc=e,
+            )
+        # The disk and memory caches (object/cache.py, object/memcache.py)
+        # wait for Queue A item 8: the S3 front serves the pools directly.
+        s3 = S3Server(
+            self.pools,
+            self.iam,
+            region=self.region,
+            check_skew=False,
+            kms=self.kms,
+            config=self.config,
+        )
+        self.trace = GLOBAL_TRACE
+        self.logger = GLOBAL_LOGGER
+        s3.trace = self.trace
+        s3.logger = self.logger
+        # Metrics, event notifier and targets, scanner, tiering,
+        # replication and site replication wait for Queue A item 8.
+        self.healmgr = HealManager(self.pools)
+        self.mrf = MRFQueue(self.pools)
+        # Feed the MRF from every erasure set: a put that met quorum but
+        # missed drives queues an async repair instead of waiting for the
+        # scanner sweep (erasure-object.go:1430 addPartial -> mrf queue).
+        for pool in self.pools.pools:
+            for s in pool.sets:
+                s.on_partial = self.mrf.add
+        # Crash-consistency plane: arm any boot-time crash schedule (crash
+        # victims arm via MTPU_CRASH since the admin API isn't up yet), then
+        # sweep crash debris off the local drives before serving: a dead
+        # process's pid-scoped stage files are GC'd here, and partially
+        # committed versions are fed to the MRF heal queue.
+        from ..chaos import crash as _crash
+        from ..storage import recovery as _recovery
+
+        _crash.arm_from_env()
+        if os.environ.get("MTPU_RECOVERY", "1") != "0":
+            for path in self.local_drives:
+                try:
+                    _recovery.recover_drive(LocalDrive(path))
+                except Exception as e:  # noqa: BLE001 - boot must not die on a sweep
+                    GLOBAL_LOGGER.error(f"recovery scan failed on {path}: {e}", exc=e)
+            for pool in self.pools.pools:
+                for s in pool.sets:
+                    if all(d is None or d.is_local() for d in s.disks):
+                        try:
+                            _recovery.recover_set(s, heal=self.mrf.add)
+                        except Exception as e:  # noqa: BLE001
+                            GLOBAL_LOGGER.error(f"set recovery scan failed: {e}", exc=e)
+        from ..control.healmgr import DiskHealMonitor
+
+        self.disk_heal = DiskHealMonitor(self.pools)
+        # Arm the always-on profiling plane (continuous stack sampler + GIL
+        # probe; MTPU_PROFILE=0 vetoes). Process-wide singleton, stopped by
+        # close_all().
+        from ..control.profiler import GLOBAL_PROFILER
+
+        GLOBAL_PROFILER.ensure_started()
+        # Serve last: until here the S3 entry and the admin routes answer 503.
+        self.s3 = s3
+        return self
+
+    # -- shutdown ------------------------------------------------------------
+
+    def close(self) -> None:
+        """Stop every background worker this node started, reverse build
+        order (consumers before their feeds), and close the codec build()
+        installed. Idempotent, and safe on a node that never completed
+        build() -- each subsystem is stopped only if it exists."""
+        for sub in ("disk_heal", "mrf", "healmgr"):
+            s = getattr(self, sub, None)
+            if s is not None:
+                s.stop()
+        own, self._own_codec = self._own_codec, None
+        if own is not None:
+            with codec_mod._default_lock:
+                if codec_mod._default is own:
+                    codec_mod._default = None
+            close = getattr(own, "close", None)
+            if close is not None:
+                close()
+        Node._live.discard(self)
+
+    @classmethod
+    def close_all(cls) -> None:
+        """Close every live node in the process -- the teardown hook for
+        test sessions and embedded setups, where nodes are built ad hoc and
+        nothing else owns their lifetime."""
+        for node in list(cls._live):
+            node.close()
+        # The profiling plane is process-wide (not per-node), so it stops
+        # here -- after the last node -- rather than in close(); buffering
+        # log targets flush for the same reason.
+        from ..control.profiler import GLOBAL_PROFILER
+
+        GLOBAL_PROFILER.stop()
+        from ..control.logging import GLOBAL_LOGGER
+
+        GLOBAL_LOGGER.close()
+
+    def make_app(self) -> web.Application:
+        """One aiohttp app: admin first, S3 catch-all last (routers.go:65
+        ordering). Servable BEFORE build() -- the S3 handler and the admin
+        routes answer 503 until the object layer is up. The storage, lock
+        and peer routers (Queue A item 7) and the console (item 8) are not
+        mounted."""
+        app = web.Application(client_max_size=1 << 31)
+        from ..api.admin import ADMIN_PREFIX, make_admin_app
+
+        app.add_subapp(ADMIN_PREFIX, make_admin_app(_LazyAdminContext(self)))
+
+        async def s3_entry(request: web.Request):
+            if self.s3 is None:
+                return web.Response(status=503, text="server initializing")
+            return await self.s3._entry(request)
+
+        app.router.add_route("*", "/{tail:.*}", s3_entry)
+        return app
+
+
+class _LazyAdminContext:
+    """Admin context resolving node components at request time, so the admin
+    router can be mounted before build() completes (it 503s until ready).
+    The subsystems of later slices (scanner, metrics, site replication)
+    read None."""
+
+    scanner = metrics = site_repl = None
+
+    def __init__(self, node: "Node"):
+        self._node = node
+
+    @property
+    def ready(self) -> bool:
+        return self._node.s3 is not None
+
+    @property
+    def layer(self):
+        return self._node.pools
+
+    @property
+    def iam(self):
+        return self._node.iam
+
+    @property
+    def verifier(self):
+        return self._node.s3.verifier
+
+    @property
+    def config(self):
+        return getattr(self._node, "config", None)
+
+    @property
+    def healmgr(self):
+        return getattr(self._node, "healmgr", None)
+
+    @property
+    def notification(self):
+        return self._node.notification
+
+
+def _default_set_count(n: int) -> int:
+    """Largest set size in [4..16] dividing n; else n itself (small rigs).
+
+    The reference computes symmetric set sizes from the ellipses pattern
+    (endpoint-ellipses.go:68 possibleSetCounts); this is the same idea for
+    explicit endpoint lists.
+    """
+    for size in range(16, 3, -1):
+        if n % size == 0:
+            return size
+    return n

@@ -1,0 +1,199 @@
+"""`python -m minio_tpu_torch server` as a real process on this host.
+
+The server boots on ``--device cpu`` (the kernels' plain versions) over four
+drives with EC:1, answers signed S3 and admin requests, writes four
+format.json files, exits 0 on SIGTERM, and comes back after a restart with
+its data and a user added over admin. On ``cuda`` (the default) without a
+card the boot fails: FATAL with the probe's error, a non-zero exit, and no
+PUT answered 200 on the way. The commands and modes whose modules are not
+ported exit 2 naming the module.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import http.client
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from minio_tpu_torch import cli
+from minio_tpu_torch.api.auth import Credentials, sign_request
+
+REPO = Path(__file__).resolve().parent.parent
+ROOT = ("cliadmin", "cli-root-secret")
+USER = ("cliuser", "cli-user-secret")
+BODY = np.random.default_rng(20).integers(0, 256, 20_000, dtype=np.uint8).tobytes()
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _request(port: int, method: str, path: str, body=b"", creds=ROOT, timeout=60.0):
+    if isinstance(body, dict):
+        body = json.dumps(body).encode()
+    headers = sign_request(Credentials(*creds), method, path, [], {"host": f"127.0.0.1:{port}"}, body)
+    headers.pop("host", None)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+class Server:
+    """One `python -m minio_tpu_torch server` process and its output."""
+
+    def __init__(self, drives: str, device: str | None = "cpu", env: dict | None = None):
+        self.port = _free_port()
+        args = [sys.executable, "-m", "minio_tpu_torch", "server", "--address", f"127.0.0.1:{self.port}",
+                "--json", drives]
+        if device is not None:
+            args[4:4] = ["--device", device]
+        full_env = dict(os.environ, PYTHONPATH=str(REPO), MINIO_ROOT_USER=ROOT[0], MINIO_ROOT_PASSWORD=ROOT[1],
+                        MINIO_STORAGE_CLASS_STANDARD="EC:1", **(env or {}))
+        full_env.pop("MINIO_TPU_CODEC", None)
+        self.proc = subprocess.Popen(args, cwd=REPO, env=full_env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.lines: list[str] = []
+        self.err: list[str] = []
+        self._online = threading.Event()
+        self._threads = [threading.Thread(target=self._read, args=(self.proc.stdout, self.lines), daemon=True),
+                         threading.Thread(target=self._read, args=(self.proc.stderr, self.err), daemon=True)]
+        for t in self._threads:
+            t.start()
+
+    def _read(self, stream, sink) -> None:
+        for line in stream:
+            sink.append(line)
+            if '"msg": "online"' in line:
+                self._online.set()
+
+    def wait_online(self, timeout: float = 90.0) -> dict:
+        assert self._online.wait(timeout), (self.lines, self.err)
+        return next(json.loads(ln) for ln in self.lines if '"msg": "online"' in ln)
+
+    def stop(self, timeout: float = 30.0) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout)
+        for t in self._threads:
+            t.join(5)
+        return rc
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """Boot, PUT/GET, add a user, SIGTERM; boot again and read it all back."""
+    root = tmp_path_factory.mktemp("cli")
+    drives = f"{root}/disk{{1...4}}"
+    out = {}
+    srv = Server(drives)
+    try:
+        out["online"] = srv.wait_online()
+        p = srv.port
+        out["make-bucket"] = _request(p, "PUT", "/clibkt")[0]
+        out["put"] = _request(p, "PUT", "/clibkt/obj", BODY)[0]
+        status, body = _request(p, "GET", "/clibkt/obj")
+        out["get"] = (status, hashlib.sha256(body).hexdigest())
+        out["user-add"] = _request(p, "POST", "/mtpu/admin/v1/users",
+                                   {"accessKey": USER[0], "secretKey": USER[1], "policies": ["readwrite"]})[0]
+        out["formats"] = [json.loads((root / f"disk{i}" / ".minio_tpu.sys" / "format.json").read_text())
+                          for i in range(1, 5)]
+    finally:
+        out["rc"] = srv.stop()
+        out["stdout"] = "".join(srv.lines)
+    srv = Server(drives)
+    try:
+        out["restart-online"] = srv.wait_online()
+        status, body = _request(srv.port, "GET", "/clibkt/obj", creds=USER)
+        out["restart-user-get"] = (status, hashlib.sha256(body).hexdigest())
+        status, body = _request(srv.port, "GET", "/mtpu/admin/v1/users")
+        out["restart-users"] = (status, json.loads(body))
+    finally:
+        out["restart-rc"] = srv.stop()
+    return out
+
+
+def test_boots_on_cpu_and_serves_signed_put_and_get(served):
+    online = served["online"]
+    assert online["codec"] == "BatchingDeviceCodec" and online["device"] == "cpu"
+    assert (online["drives"], online["pools"], online["sets"], online["set_drive_count"]) == (4, 1, 1, 4)
+    assert served["make-bucket"] == served["put"] == served["user-add"] == 200
+    assert served["get"] == (200, hashlib.sha256(BODY).hexdigest())
+
+
+def test_four_format_json_written(served):
+    formats = served["formats"]
+    assert len(formats) == 4
+    assert len({f["id"] for f in formats}) == 1
+    assert len({f["erasure"]["this"] for f in formats}) == 4
+    assert all(f["erasure"]["sets"] == formats[0]["erasure"]["sets"] for f in formats)
+
+
+def test_sigterm_exits_0(served):
+    assert served["rc"] == 0 and served["restart-rc"] == 0
+    assert '"msg": "shutting down"' in served["stdout"]
+
+
+def test_restart_keeps_data_and_the_user(served):
+    assert served["restart-user-get"] == (200, hashlib.sha256(BODY).hexdigest())
+    status, users = served["restart-users"]
+    assert status == 200 and users[USER[0]] == {"status": "enabled", "policies": ["readwrite"]}
+
+
+def test_cuda_without_a_card_fails_the_boot_and_serves_no_put(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    srv = Server(f"{tmp_path}/disk{{1...4}}", device=None, env={"MINIO_TPU_DEVICE_PROBE_S": "60"})
+    statuses = []
+    t0 = time.monotonic()
+    while srv.proc.poll() is None and time.monotonic() - t0 < 90:
+        try:
+            statuses.append(_request(srv.port, "PUT", "/nobkt", timeout=5)[0])
+        except OSError:
+            pass  # not listening yet, or already gone
+        time.sleep(0.1)
+    rc = srv.stop()
+    err = "".join(srv.err)
+    assert rc != 0, err
+    assert time.monotonic() - t0 < 60 + 30  # within the probe timeout (and the interpreter's start)
+    assert "FATAL: node bootstrap failed: device probe failed" in err and "no CUDA device" in err
+    assert "[probe] env:" in err
+    assert 200 not in statuses and set(statuses) <= {503}
+    assert not any('"msg": "online"' in ln for ln in srv.lines)
+
+
+@pytest.mark.parametrize(
+    "argv,env,module",
+    [
+        (["gateway", "nas", "/tmp/x"], {}, "object/gateway.py"),
+        (["update", "file:///mirror"], {}, "control/update.py"),
+        (["server", "--device", "cpu", "{root}/d{{1...4}}"], {"MTPU_WORKERS": "2"}, "api/prefork.py"),
+        (["server", "--device", "cpu", "{root}/one"], {}, "object/fs.py"),
+    ],
+    ids=["gateway", "update", "prefork", "fs-backend"],
+)
+def test_unported_commands_exit_2_naming_the_module(tmp_path, monkeypatch, capsys, argv, env, module):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    argv = [a.format(root=tmp_path) for a in argv]
+    assert cli.main(argv) == 2
+    assert module in capsys.readouterr().err

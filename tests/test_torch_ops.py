@@ -506,6 +506,17 @@ def test_import_checks_cover_the_fault_plane():
         assert (PORT / rel) in sorted(PORT.rglob("*.py"))
 
 
+def test_import_checks_cover_the_boot_path():
+    mods = _port_modules()
+    for m in (
+        "_probe_child", "runtime", "cli", "__main__", "dist", "dist.node", "api.admin",
+        "control.config", "control.healmgr", "ops.goldens",
+    ):
+        assert f"minio_tpu_torch.{m}" in mods
+        rel = m.replace(".", "/") + ("/__init__.py" if m == "dist" else ".py")
+        assert (PORT / rel) in sorted(PORT.rglob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"

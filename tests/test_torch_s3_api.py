@@ -566,8 +566,9 @@ step("select-object-content", not_ported=True)(lambda c: c.send(
     body=b"<SelectObjectContentRequest><Expression>SELECT * FROM S3Object</Expression>"
     b"<ExpressionType>SQL</ExpressionType><InputSerialization><CSV/></InputSerialization>"
     b"<OutputSerialization><CSV/></OutputSerialization></SelectObjectContentRequest>"))
-# (sent to the second server of each package, the one built with a config)
-step("compression-config-put", not_ported=True)(lambda c: c.send(
+# (sent to the second server of each package, the one built with a config
+# whose compression subsystem is on: both fronts compress the PUT)
+step("compression-config-put")(lambda c: c.send(
     "PUT", "/cbkt/notes.txt", body=b"compress me " * 200))
 
 # the last listings and the bucket list
