@@ -70,18 +70,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    14+2, SIPMOD+PARITY), built by ErasureSets.from_drives; pool 1 is 16
    drives, 1 set, attached later by ServerPools.add_pool (SUSPENDED, then
    ACTIVE) while pool 0 turns DRAINING. Every set shares the phase's codec.
-   2,048 objects from one numpy generator (names
+   1,024 objects from one numpy generator (names
    tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants and 8 days, sizes
    log-uniform from 1 KiB to 4 MiB, one in 8 REDUCED_REDUNDANCY), from 16
-   client threads: 1,536 PUT into pool 0; 32 of them, of every size class
+   client threads: 768 PUT into pool 0; 32 of them, of every size class
    and both storage classes, PUT again into a numpy HostCodec copy of
    pool 0 must leave the same part files and inline data; the listing of
    pool 0 is exact in pages of 1,000 with and without a delimiter and a
    prefix, its second page served by the metacache, and
    list_object_versions pages through versioned overwrites and a delete
    marker with key and version markers; after the attach the
-   other 512 and 64 overwrites of pool-0 keys land in pool 1; every object's
-   xl.meta lies only on its hashed set's drives; a GET of all 2,048 is
+   other 256 and 64 overwrites of pool-0 keys land in pool 1; every object's
+   xl.meta lies only on its hashed set's drives; a GET of all 1,024 is
    byte-exact (an overwritten key reads its new bytes); the listing of both
    pools is exact without a delimiter (the delimiter listing and the
    version listing are printed, not held: the reference's multi-pool merges
@@ -109,7 +109,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with the counts reset before it and read after:
    - http_put: 512 new objects (tenant-XX/YYYY-MM-DD/http-NNNNN, phase 5's
      size law, one in 8 REDUCED_REDUNDANCY); both kernels;
-   - http_get: those 512 and 512 of phase 5's surviving objects in pool 0
+   - http_get: those 512 and 256 of phase 5's surviving objects in pool 0
      (pool 1's lost one drive's copy to phase 5's heal_bucket check),
      byte-exact; hh256, and rs_gf_apply only for windows where a hedged
      spare read beat a slow primary (at most 2 launches a winning hedge).
@@ -233,6 +233,45 @@ Phases, each of which raises on failure (the script then exits non-zero):
      boot that follows finds no stage debris after its recovery scans.
    Every path of phases 3-9 also reports the host library's RS and HH call
    counts (Tally.read): zero on every card path, or the script fails.
+
+10. A 4-node cluster on the one card (dist/transport.py, storage_rest.py,
+   locks.py, peer.py, the multi-node half of dist/node.py): MinIO's
+   distributed form `minio server http://host{1...4}/export{1...4}`, 4
+   nodes x 4 drives, one 16-drive set (12+4, RRS 14+2), written out as 16
+   endpoints http://127.0.0.1:<port n>/<root>/cluster/n<n>/d<d>, host-major,
+   so that each node gets its own port and drives. Four processes run
+   `python3 -m minio_tpu_torch server --json --url http://127.0.0.1:<port n>
+   --address 127.0.0.1:<port n> <the 16 endpoints>`; phase 6's client
+   process (16 threads) sends each request to the node it names.
+   - 10a: all four start at once; each online line names
+     BatchingDeviceCodec, 16 drives, 1 pool, 1 set and its own PROBE_OK
+     gpu; the seconds from spawn to all four online; one deployment id on
+     the 16 format.json files; the card's memory in use.
+   - 10b: 128 objects of phase 5's size law and one 64 MiB object PUT
+     round-robin over the nodes, each read back byte-exact through the next
+     node (objects/s, p50, p99 of each); /perf?cluster=1 shows encode-batch
+     and verify-batch records and every peer, and each node's /perf its own
+     probe ok; a sample of every size class and storage class leaves part
+     files and inline data equal to a numpy HostCodec set over the same
+     format.json files.
+   - 10c: 8 concurrent PUTs of one key with distinct bodies through the 4
+     nodes all answer 200; every node GETs the same body, one of the 8;
+     the 16 xl.meta agree on one latest version; /toplocks and
+     /force-unlock answer with the JAX shapes.
+   - 10d: SIGKILL of node 4 (its 4 drives go with it): every STANDARD
+     (12+4) object of 10b reads back byte-exact through nodes 1-3, with
+     reconstruct-batch records; 32 new STANDARD PUTs succeed at 12 of 16
+     drives. A REDUCED_REDUNDANCY (14+2) object loses 4 shards with the
+     node, past its parity: each answers 503 SlowDownRead, and an RRS PUT
+     503 SlowDownWrite (write quorum 14).
+   - 10e: node 4 restarts with the same command and comes online with its
+     own probe; admin /heal on node 1 heals the bucket; node 4's drives
+     then hold the 32 new objects' part files equal to the host codec's, no
+     drive holds stage debris, the refused RRS PUT left no object, and
+     every object (the RRS ones too) reads back byte-exact through node 4.
+   - 10f: SIGTERM to the four nodes; each exits 0.
+   The kernels ran in the node processes: the kernels line carries each
+   node's codec records by step (codec_records_by_node).
 
 The line before the last is a JSON object describing each kernel, with its
 launches by path (phase 7's and phase 8a's included); the last
@@ -1124,7 +1163,7 @@ def _shape_summary(counts: dict) -> dict:
     return {"hh256": dict(sorted(hh.items())), "rs_gf_apply": dict(sorted(rs.items()))}
 
 
-def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 2048, threads: int = 16,
+def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 1024, threads: int = 16,
                 max_size: int = 4 * MiB, seed: int = 5, rates: dict | None = None) -> tuple[dict, SimpleNamespace]:
     """A 48-drive deployment through ServerPools: see the module docstring.
     Returns the paths' counts and the deployment as it stands after the
@@ -1535,27 +1574,29 @@ SIGNED_BODY_MAX = MiB
 STREAM_CHUNK = 64 << 10
 
 
-def _client_main(conn, endpoint: str) -> None:
+def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
     """Phase 6's S3 client, in a spawned process of its own so that its
     signing and hashing do not share the server's GIL. It signs with the
     port's api/auth.sign_request and api/streaming.encode_chunked over
-    keep-alive http.client connections (one a thread), holds the expected
-    bytes of every object (made from the same seeds as the server side's),
-    and answers commands from the pipe until "stop"."""
+    keep-alive http.client connections (one a thread and node), holds the
+    expected bytes of every object (made from the same seeds as the server
+    side's), and answers commands from the pipe until "stop". Node 0 is
+    `endpoint`; phase 10 names the nodes of `others` by their index + 1."""
     import http.client
     import traceback
     import urllib.parse
 
     from minio_tpu_torch.api import auth, streaming
 
-    host = urllib.parse.urlparse(endpoint).netloc
+    hosts = [urllib.parse.urlparse(e).netloc for e in (endpoint, *others)]
+    host = hosts[0]
     creds = auth.Credentials(*HTTP_CREDS)
     objects: dict = {}
     local = threading.local()
 
-    def signed(method: str, path: str, query: list, headers: dict, body) -> tuple[dict, object]:
+    def signed(method: str, path: str, query: list, headers: dict, body, node: int = 0) -> tuple[dict, object]:
         h = {k.lower(): v for k, v in headers.items()}
-        h["host"] = host
+        h["host"] = hosts[node]
         if len(body) > SIGNED_BODY_MAX:
             h["content-encoding"] = "aws-chunked"
             h["x-amz-decoded-content-length"] = str(len(body))
@@ -1569,17 +1610,19 @@ def _client_main(conn, endpoint: str) -> None:
         return h, body
 
     def send(method: str, path: str, query=(), headers=None, body=b"", sign: bool = True,
-             fresh: bool = False, tamper: bool = False) -> tuple[int, dict, bytes, float]:
+             fresh: bool = False, tamper: bool = False, node: int = 0) -> tuple[int, dict, bytes, float]:
         query = list(query)
         headers = dict(headers or {})
         if sign:
-            headers, body = signed(method, path, query, headers, body)
+            headers, body = signed(method, path, query, headers, body, node)
             if tamper:
                 headers["authorization"] = headers["authorization"][:-4] + "0000"
         url = urllib.parse.quote(path) + ("?" + urllib.parse.urlencode(query) if query else "")
-        c = None if fresh else getattr(local, "conn", None)
+        if not hasattr(local, "conns"):
+            local.conns = {}
+        c = None if fresh else local.conns.get(node)
         if c is None:
-            c = http.client.HTTPConnection(host, timeout=600)
+            c = http.client.HTTPConnection(hosts[node], timeout=600)
         t0 = time.perf_counter()
         c.request(method, url, body=body, headers=headers)
         r = c.getresponse()
@@ -1588,9 +1631,9 @@ def _client_main(conn, endpoint: str) -> None:
         if fresh or r.will_close:
             c.close()
             if not fresh:
-                local.conn = None
+                local.conns.pop(node, None)
         else:
-            local.conn = c
+            local.conns[node] = c
         return r.status, {k.lower(): v for k, v in r.getheaders()}, data, dt
 
     def fan_out(fn, items, threads: int) -> tuple[list, float]:
@@ -1607,9 +1650,10 @@ def _client_main(conn, endpoint: str) -> None:
         objects[name] = memoryview(np.random.default_rng(seed).bytes(nbytes))
         return nbytes
 
-    def put(names: list, headers: dict, threads: int) -> dict:
+    def put(names: list, headers: dict, threads: int, where: dict | None = None) -> dict:
         def one(name):
-            st, h, body, dt = send("PUT", f"/bench/{name}", headers=headers.get(name), body=objects[name])
+            st, h, body, dt = send("PUT", f"/bench/{name}", headers=headers.get(name), body=objects[name],
+                                   node=where[name] if where else 0)
             if st != 200:
                 raise AssertionError(f"PUT {name}: {st} {body[:300]!r}")
             return dt, h.get("etag", "")
@@ -1624,16 +1668,16 @@ def _client_main(conn, endpoint: str) -> None:
             try:
                 st, _, body, dt = send("PUT", f"/bench/{name}", body=objects[name])
             except (OSError, http.client.HTTPException) as e:
-                local.conn = None  # its connection died with the process that had accepted it
+                local.conns.pop(0, None)  # its connection died with the process that had accepted it
                 return name, f"{type(e).__name__}: {e}", None
             return name, st, dt
         out, wall = fan_out(one, names, threads)
         return {"acked": [n for n, st, _ in out if st == 200], "failed": {n: st for n, st, _ in out if st != 200},
                 "latencies": [dt for _, st, dt in out if st == 200], "wall": wall}
 
-    def get(names: list, threads: int) -> dict:
+    def get(names: list, threads: int, where: dict | None = None) -> dict:
         def one(name):
-            st, _, body, dt = send("GET", f"/bench/{name}")
+            st, _, body, dt = send("GET", f"/bench/{name}", node=where[name] if where else 0)
             if st != 200 or body != objects[name]:
                 raise AssertionError(f"GET {name}: status {st}, {len(body)} bytes, "
                                      f"want 200 and {len(objects[name])} equal bytes")
@@ -1717,11 +1761,11 @@ def _client_main(conn, endpoint: str) -> None:
         st, h, data, _ = send(method, path, query, headers, body, sign=sign, fresh=True, tamper=tamper)
         return st, h, data[:4096]
 
-    def admin(method: str, path: str, query=(), doc=None) -> tuple:
+    def admin(method: str, path: str, query=(), doc=None, node: int = 0) -> tuple:
         """A signed admin request with a JSON body; the whole answer, parsed
         when it is JSON."""
         body = json.dumps(doc).encode() if doc is not None else b""
-        st, h, data, _ = send(method, path, query, {}, body, fresh=True)
+        st, h, data, _ = send(method, path, query, {}, body, fresh=True, node=node)
         return st, json.loads(data) if h.get("content-type", "").startswith("application/json") else data[:4096]
 
     def request_as(ak: str, sk: str, method: str, path: str, body=b"") -> tuple:
@@ -1736,9 +1780,28 @@ def _client_main(conn, endpoint: str) -> None:
         finally:
             c.close()
 
+    def put_race(name: str, seeds: list, nbytes: int) -> dict:
+        """len(seeds) PUTs of one key, each with its own body, released at
+        once through the nodes in turn: their statuses and the bodies'
+        sha256."""
+        bodies = [np.random.default_rng(seed).bytes(nbytes) for seed in seeds]
+        barrier = threading.Barrier(len(bodies))
+
+        def one(i):
+            barrier.wait()
+            return send("PUT", f"/bench/{name}", body=bodies[i], fresh=True, node=i % len(hosts))[0]
+
+        statuses, wall = fan_out(one, range(len(bodies)), len(bodies))
+        return {"statuses": statuses, "digests": [hashlib.sha256(b).hexdigest() for b in bodies], "wall": wall}
+
+    def fetch(path: str, node: int) -> tuple:
+        """A signed GET through one node: (status, sha256 of the body)."""
+        st, _, body, _ = send("GET", path, fresh=True, node=node)
+        return st, hashlib.sha256(body).hexdigest()
+
     ops = {"register": register, "register_bytes": register_bytes, "put": put, "put_some": put_some, "get": get,
            "multipart": multipart, "list_v2": list_v2, "ranges": ranges, "delete": delete, "request": request,
-           "admin": admin, "request_as": request_as}
+           "admin": admin, "request_as": request_as, "put_race": put_race, "fetch": fetch}
     while True:
         msg = conn.recv()
         if msg[0] == "stop":
@@ -1754,12 +1817,12 @@ class HttpClient:
     """The parent's handle on the client process: call(op, *args) runs one
     command there and returns its result, or raises its error here."""
 
-    def __init__(self, endpoint: str):
+    def __init__(self, endpoint: str, others: tuple = ()):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
         self._conn, child = ctx.Pipe()
-        self._proc = ctx.Process(target=_client_main, args=(child, endpoint), daemon=True)
+        self._proc = ctx.Process(target=_client_main, args=(child, endpoint, tuple(others)), daemon=True)
         self._proc.start()
         child.close()
 
@@ -1787,7 +1850,7 @@ def _percentile(values: list, q: float) -> float:
 
 
 def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: dict, rates: dict,
-               n_put: int = 512, n_get_old: int = 512, big_mib: int = 128, part_mib: int = 8,
+               n_put: int = 512, n_get_old: int = 256, big_mib: int = 128, part_mib: int = 8,
                threads: int = HTTP_THREADS, seed: int = 6, degraded_set: int = 0) -> dict:
     """Phase 5's deployment behind the port's S3Server, driven by signed
     HTTP from a client process: see the module docstring."""
@@ -1883,6 +1946,9 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
         first = set(state.first)
         survivors = [n for n in state.live if n in first and n not in state.overwritten]
         olds = survivors[:: max(1, len(survivors) // n_get_old)][:n_get_old]
+        if len(olds) < n_get_old:
+            raise AssertionError(f"http_get: {len(survivors)} of phase 5's objects survive in pool 0, "
+                                 f"want {n_get_old}")
         before = codec.stats()
         planes.reset()
         tally.reset()
@@ -1941,6 +2007,8 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
         sets0 = state.sets0
         disks = sets0.sets[degraded_set].disks
         targets = [n for n in survivors if sets0.get_set_index(n) == degraded_set]
+        if not targets:
+            raise AssertionError(f"http_degraded_get: no surviving object of pool 0's set {degraded_set}")
         lost_drives = (2, 5, 9, 14)
         removed = 0
         for name in targets:
@@ -3100,6 +3168,281 @@ def _kill_a_worker(srv, client, pids: list, port: int, n: int, max_size: int, th
     return {"victim": victim, "respawned": [new_pid], "acked": len(acked), "failed": len(res["failed"])}
 
 
+# -- phase 10: a 4-node cluster on the one card ------------------------------------------------
+
+CLUSTER_NODES, CLUSTER_DRIVES = 4, 4  # minio server http://host{1...4}/export{1...4}: one 16-drive set
+CODEC_STAGES = ("encode-batch", "encode-batch-small", "verify-batch", "reconstruct-batch")
+
+
+def _gpu_memory() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _codec_records(client, nodes, label: str = "") -> dict:
+    """{node: {codec stage: records, "probe_ok": its /perf probe block's
+    verdict}} from each node's own /perf ledger since the last reset. With a label,
+    also prints each node's RestClient records (layer rpc-peer, one stage
+    per endpoint and peer) summed by endpoint: calls and total ms."""
+    out, rpc = {}, {}
+    for n in nodes:
+        st, perf = client.call("admin", "GET", f"{ADMIN_PREFIX}/perf", (), None, n)
+        if st != 200:
+            raise AssertionError(f"/perf on node {n + 1}: {st}")
+        stages = perf["node"]["stages"]
+        out[f"node{n + 1}"] = {k: v["count"] for k, v in stages.get("codec", {}).items() if k in CODEC_STAGES}
+        out[f"node{n + 1}"]["probe_ok"] = perf["probe"]["ok"]
+        by_path: dict = {}
+        for stage, rec in stages.get("rpc-peer", {}).items():
+            calls, ms = by_path.get(stage.split("@")[0].split("?")[0], (0, 0.0))
+            by_path[stage.split("@")[0].split("?")[0]] = (calls + rec["count"], ms + rec["total_ms"])
+        rpc[f"node{n + 1}"] = {k: [c, round(ms, 1)] for k, (c, ms) in sorted(by_path.items())}
+    if label:
+        log(f"{label} RestClient records by node, endpoint: [calls, total ms]: {json.dumps(rpc)}")
+    return out
+
+
+def _reset_cluster(client) -> None:
+    st, _ = client.call("admin", "GET", f"{ADMIN_PREFIX}/perf", [("reset", "1"), ("cluster", "1")])
+    if st != 200:
+        raise AssertionError(f"/perf?reset=1&cluster=1: {st}")
+
+
+def _latest_versions(dirs: list, name: str) -> set:
+    from minio_tpu_torch.storage.local import LocalDrive
+
+    out = set()
+    for d in dirs:
+        fi = LocalDrive(d).read_version("bench", name)
+        out.add((fi.version_id, fi.mod_time, fi.data_dir, fi.size))
+    return out
+
+
+def phase_cluster(smi: str, root: str, device: str = "cuda", n_objects: int = 128, big_mib: int = 64,
+                  n_new: int = 32, n_race: int = 8, race_kib: int = 512, n_sample: int = 8,
+                  max_size: int = 4 * MiB, threads: int = HTTP_THREADS) -> dict:
+    """10a-10f: four `python3 -m minio_tpu_torch server --url ...` processes
+    over one 16-drive endpoint list, each node with 4 drives of its own: see
+    the module docstring. Returns the codec records by node of each step."""
+    from minio_tpu_torch.object.codec import HostCodec
+    from minio_tpu_torch.object.sets import ErasureSets
+    from minio_tpu_torch.object.types import PutObjectOptions
+    from minio_tpu_torch.storage import format as fmt
+    from minio_tpu_torch.storage.local import LocalDrive
+
+    base = os.path.join(root, "cluster")
+    ports = [_free_port() for _ in range(CLUSTER_NODES)]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    dirs = [[os.path.join(base, f"n{n + 1}", f"d{d + 1}") for d in range(CLUSTER_DRIVES)] for n in range(CLUSTER_NODES)]
+    flat = [d for node in dirs for d in node]
+    endpoints = [f"{urls[n]}{dirs[n][d]}" for n in range(CLUSTER_NODES) for d in range(CLUSTER_DRIVES)]
+
+    def args(n: int) -> list:
+        return [*(["--device", "cpu"] if device == "cpu" else []), "--url", urls[n], *endpoints]
+
+    def check_online(n: int, line: dict) -> None:
+        want = {"codec": "BatchingDeviceCodec", "drives": 16, "pools": 1, "sets": 1, "device": device}
+        if {k: line.get(k) for k in want} != want:
+            raise AssertionError(f"10a node {n + 1} online line {line}, want {want}")
+        if device == "cuda" and not str(line.get("probe", "")).startswith("PROBE_OK gpu "):
+            raise AssertionError(f"10a node {n + 1}: its own probe's verdict {line.get('probe')}")
+
+    records: dict = {}
+    srvs = [CliServer(args(n), ports[n]) for n in range(CLUSTER_NODES)]
+    client = None
+    try:
+        # 10a boot: all four at once, each with its own probe and codec.
+        onlines = [srv.online(300) for srv in srvs]
+        for n, (_, line) in enumerate(onlines):
+            check_online(n, line)
+        boot_s = max(t for t, _ in onlines)
+        ids = {json.loads(_read(os.path.join(d, ".minio_tpu.sys", "format.json")))["id"] for d in flat}
+        if len(ids) != 1:
+            raise AssertionError(f"10a: the 16 drives carry deployment ids {ids}")
+        mem = _gpu_memory() if device == "cuda" else "not measured (no card)"
+        marked = [d for d in flat if os.path.exists(os.path.join(d, ".minio_tpu.sys", "healing.bin"))]
+        log(f"10a 4 nodes x 4 drives online {boot_s:.2f} s after spawn (each: "
+            f"{', '.join(f'{t:.2f} s' for t, _ in onlines)}); "
+            + " | ".join(f"node {n + 1} pid {line['pid']}: {line.get('probe')}" for n, (_, line) in enumerate(onlines))
+            + f"; one deployment id on the 16 drives, {len(marked)} of them marked for healing at boot; "
+            f"card memory used/total {mem} [{smi}]")
+
+        # 10b traffic: PUT round-robin over the nodes, GET through the next one.
+        client = HttpClient(urls[0], urls[1:])
+        if client.call("request", "PUT", "/bench")[0] != 200:
+            raise AssertionError("10b: make bucket")
+        n = client.call("register", 96, n_objects, max_size, "cl")
+        client.call("register_bytes", "cl/big", 97, big_mib * MiB)
+        traffic = Traffic(96, n, max_size, "cl")
+        names = traffic.names + ["cl/big"]
+        rrs = {k: {"x-amz-storage-class": "REDUCED_REDUNDANCY"} for k in traffic.names if traffic.storage_class[k]}
+        put_on = {k: i % CLUSTER_NODES for i, k in enumerate(names)}
+        get_on = {k: (i + 1) % CLUSTER_NODES for i, k in enumerate(names)}
+        _reset_cluster(client)
+        put = client.call("put", names, rrs, threads, put_on)
+        st, cperf = client.call("admin", "GET", f"{ADMIN_PREFIX}/perf", [("cluster", "1")])
+        cstages = cperf["cluster"]["stages"].get("codec", {}) if st == 200 else {}
+        if not cstages.get("encode-batch", {}).get("count"):
+            raise AssertionError(f"10b: /perf?cluster=1 has no encode-batch record after the PUTs: {cstages}")
+        records["cluster_put"] = _codec_records(client, range(CLUSTER_NODES), "10b PUT")
+        _reset_cluster(client)
+        get = client.call("get", names, threads, get_on)
+        st, cperf = client.call("admin", "GET", f"{ADMIN_PREFIX}/perf", [("cluster", "1")])
+        if not cperf["cluster"]["stages"].get("codec", {}).get("verify-batch", {}).get("count"):
+            raise AssertionError("10b: /perf?cluster=1 has no verify-batch record after the GETs")
+        if sorted(cperf["peers"]) != sorted(urls[1:]) or not all(p["ok"] for p in cperf["peers"].values()):
+            raise AssertionError(f"10b: /perf?cluster=1 peers {cperf['peers']}")
+        records["cluster_get"] = _codec_records(client, range(CLUSTER_NODES), "10b GET")
+        if device == "cuda" and not all(r["probe_ok"] for r in records["cluster_get"].values()):
+            raise AssertionError(f"10b: a node's /perf probe block is not ok: {records['cluster_get']}")
+        nbytes = put["bytes"]
+        log(f"10b PUT {len(names)} objects ({nbytes / MiB:.1f} MiB, {len(rrs)} REDUCED_REDUNDANCY, one {big_mib} MiB) "
+            f"round-robin over the 4 nodes from {threads} threads: {len(names) / put['wall']:.1f} objects/s, "
+            f"{nbytes / 2**30 / put['wall']:.4f} GiB/s, p50 {_percentile(put['latencies'], 50):.3f} s, "
+            f"p99 {_percentile(put['latencies'], 99):.3f} s [{smi}]")
+        log(f"10b GET each through another node, byte-exact: {len(names) / get['wall']:.1f} objects/s, "
+            f"{nbytes / 2**30 / get['wall']:.4f} GiB/s, p50 {_percentile(get['latencies'], 50):.3f} s, "
+            f"p99 {_percentile(get['latencies'], 99):.3f} s; codec records by node: PUT "
+            f"{json.dumps(records['cluster_put'])}, GET {json.dumps(records['cluster_get'])} [{smi}]")
+
+        # Bytes against the host codec: a sample of every size class and both
+        # storage classes, PUT into a numpy HostCodec set over the cluster's
+        # 16 format.json files, leaves the same part files and inline data.
+        by_class = collections.defaultdict(list)
+        for k in traffic.names:
+            by_class[(_size_class(len(traffic.data[k])), traffic.storage_class[k])].append(k)
+        sample = [sorted(v, key=lambda k: len(traffic.data[k]))[0] for _, v in sorted(by_class.items())][:n_sample]
+        formats = [fmt.DriveFormat.load(d) for d in flat]
+        host_dirs = [os.path.join(base, "host", f"d{i}") for i in range(16)]
+        for d, f in zip(host_dirs, formats):
+            os.makedirs(d)
+            f.save(d)
+        host_set = ErasureSets.from_drives([LocalDrive(d) for d in host_dirs], formats[0],
+                                           codec=HostCodec(use_native=False), pool_index=0)
+        host_set.make_bucket("bench")
+
+        def same_as_host(k: str, drive_dirs: list, what: str) -> None:
+            for i, d in enumerate(drive_dirs):
+                got = _object_files(SimpleNamespace(root=d), k)
+                want = _object_files(SimpleNamespace(root=host_dirs[flat.index(d)]), k)
+                if got.keys() != want.keys() or any(got[f] != want[f] for f in got if f != "xl.meta"):
+                    raise AssertionError(f"{what} {k}: drive {d} differs from the host codec's")
+                if LocalDrive(d).read_version("bench", k).inline_data != \
+                        LocalDrive(host_dirs[flat.index(d)]).read_version("bench", k).inline_data:
+                    raise AssertionError(f"{what} {k}: drive {d} inline data differs from the host codec's")
+
+        for k in sample:
+            host_set.put_object("bench", k, bytes(traffic.data[k]),
+                                PutObjectOptions(storage_class=traffic.storage_class[k]))
+            same_as_host(k, flat, "10b reference")
+        covered = collections.Counter(f"{_size_class(len(traffic.data[k]))}/{traffic.storage_class[k] or 'STANDARD'}"
+                                      for k in sample)
+        log(f"10b reference check ok: {len(sample)} objects ({json.dumps(dict(sorted(covered.items())))}): "
+            f"byte-identical part files and inline data on the 16 drives against the numpy host codec")
+
+        # 10c dsync across nodes: n_race concurrent PUTs of one key.
+        race = client.call("put_race", "cl/race", list(range(200, 200 + n_race)), race_kib << 10)
+        if race["statuses"] != [200] * n_race:
+            raise AssertionError(f"10c: the racing PUTs answered {race['statuses']}")
+        seen = {client.call("fetch", "/bench/cl/race", i) for i in range(CLUSTER_NODES)}
+        if len(seen) != 1 or next(iter(seen))[0] != 200 or next(iter(seen))[1] not in race["digests"]:
+            raise AssertionError(f"10c: the nodes GET {seen}, want one of the {n_race} bodies")
+        versions = _latest_versions(flat, "cl/race")
+        if len(versions) != 1:
+            raise AssertionError(f"10c: the 16 xl.meta files disagree on the latest version: {versions}")
+        top = [client.call("admin", "GET", f"{ADMIN_PREFIX}/toplocks", (), None, i) for i in range(CLUSTER_NODES)]
+        if any(st != 200 or not isinstance(doc, list) or any(set(e) != {"resource", "writer", "holders"} for e in doc)
+               for st, doc in top):
+            raise AssertionError(f"10c /toplocks: {top}")
+        unlock = client.call("admin", "POST", f"{ADMIN_PREFIX}/force-unlock", (), {"resource": "bench/cl/race"})
+        if unlock != (200, {"ok": True}):
+            raise AssertionError(f"10c /force-unlock: {unlock}")
+        log(f"10c {n_race} concurrent PUTs of one key ({race_kib} KiB, distinct bodies) through the 4 nodes: all 200 "
+            f"in {race['wall']:.3f} s; every node GETs body {race['digests'].index(next(iter(seen))[1])}; the 16 "
+            f"xl.meta agree on one latest version; /toplocks {[len(doc) for _, doc in top]} entries, /force-unlock ok")
+
+        # 10d node loss: SIGKILL node 4 and its 4 drives. A 12+4 object keeps
+        # its read and write quorum (12); a 14+2 object loses 4 of its 16
+        # shards, past its 2 parity: it is unreadable, and a new one
+        # unwritable (quorum 14), until node 4 is back.
+        srvs[3].proc.kill()
+        srvs[3].proc.wait(30)
+        srvs[3]._reader.join(5)
+        up = range(CLUSTER_NODES - 1)
+        standard = [k for k in names if k not in rrs]
+        _reset_cluster(client)
+        dget = client.call("get", standard, threads, {k: i % 3 for i, k in enumerate(standard)})
+        records["cluster_degraded_get"] = _codec_records(client, up, "10d degraded GET")
+        if not sum(r.get("reconstruct-batch", 0) for r in records["cluster_degraded_get"].values()):
+            raise AssertionError(f"10d: no reconstruct-batch record: {records['cluster_degraded_get']}")
+        rrs_gets = [client.call("fetch", f"/bench/{k}", i % 3)[0] for i, k in enumerate(rrs)]
+        if any(st != 503 for st in rrs_gets):
+            raise AssertionError(f"10d: the REDUCED_REDUNDANCY objects answer {rrs_gets}, want 503 SlowDownRead")
+        rrs_put = client.call("request", "PUT", "/bench/cl/rrs-during-loss",
+                              (), {"x-amz-storage-class": "REDUCED_REDUNDANCY"}, bytes(200 << 10))[0]
+        if rrs_put != 503:
+            raise AssertionError(f"10d: a REDUCED_REDUNDANCY PUT with 12 of 16 drives answers {rrs_put}, want 503")
+        m = client.call("register", 98, n_new, max_size, "cl-new")
+        new = Traffic(98, m, max_size, "cl-new")
+        _reset_cluster(client)
+        put_new = client.call("put", new.names, {}, threads, {k: i % 3 for i, k in enumerate(new.names)})
+        records["cluster_put_node_lost"] = _codec_records(client, up)
+        log(f"10d SIGKILL of node 4: GET of the {len(standard)} STANDARD objects through nodes 1-3 byte-exact "
+            f"{len(standard) / dget['wall']:.1f} objects/s, {dget['bytes'] / 2**30 / dget['wall']:.4f} GiB/s, "
+            f"p50 {_percentile(dget['latencies'], 50):.3f} s, p99 {_percentile(dget['latencies'], 99):.3f} s; the "
+            f"{len(rrs)} REDUCED_REDUNDANCY objects answer 503 and an RRS PUT 503 (14+2 past its parity); {m} new "
+            f"STANDARD PUTs at 12 of 16 drives {m / put_new['wall']:.1f} objects/s; codec records by node: degraded "
+            f"GET {json.dumps(records['cluster_degraded_get'])}, PUT {json.dumps(records['cluster_put_node_lost'])} "
+            f"[{smi}]")
+
+        # 10e rejoin and heal.
+        srvs[3] = CliServer(args(3), ports[3])
+        t_rejoin, line = srvs[3].online(300)
+        check_online(3, line)
+
+        def all_online():
+            st, info = client.call("admin", "GET", f"{ADMIN_PREFIX}/info")
+            return st == 200 and info["drivesOnline"] == 16
+
+        waited = _wait_for(all_online, 60, "node 1 to see the 16 drives online")
+        _reset_cluster(client)
+        t = time.perf_counter()
+        status = _heal_until_done(client)
+        heal_s = time.perf_counter() - t
+        records["cluster_heal"] = _codec_records(client, range(CLUSTER_NODES))
+        for k in new.names:
+            host_set.put_object("bench", k, bytes(new.data[k]))
+            same_as_host(k, dirs[3], "10e heal")
+        debris = [p for d in flat for p in _debris(d)]
+        if debris:
+            raise AssertionError(f"10e: debris on the drives: {debris[:8]}")
+        if client.call("fetch", "/bench/cl/rrs-during-loss", 3)[0] != 404:
+            raise AssertionError("10e: the refused REDUCED_REDUNDANCY PUT left an object")
+        everything = names + new.names
+        back = client.call("get", everything, threads, dict.fromkeys(everything, 3))
+        log(f"10e node 4 restarted: online {t_rejoin:.2f} s after spawn ({line.get('probe')}), node 1 saw its drives "
+            f"{waited:.2f} s later; admin /heal in {heal_s:.2f} s: {json.dumps(status)}; codec records by node "
+            f"{json.dumps(records['cluster_heal'])}; node 4's drives hold the {m} new objects' part files equal to "
+            f"the host codec's, no debris on the 16 drives, the refused RRS PUT absent; all {len(everything)} objects "
+            f"(the RRS ones too) GET byte-exact from node 4 "
+            f"({len(everything) / back['wall']:.1f} objects/s) [{smi}]")
+    finally:
+        if client is not None:
+            client.close()
+        # 10f: SIGTERM to all four; each exits 0.
+        rcs = []
+        for srv in srvs:
+            try:
+                rcs.append(srv.stop(30)[0])
+            except AssertionError as e:
+                rcs.append(str(e))
+    if rcs != [0] * CLUSTER_NODES:
+        raise AssertionError(f"10f: SIGTERM rcs {rcs}")
+    log(f"10f SIGTERM to the 4 nodes: rc {rcs}")
+    shutil.rmtree(base, ignore_errors=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3142,6 +3485,10 @@ def main() -> int:
         phase_prefork(smi, root)
         log(f"9b-9c done in {time.perf_counter() - t:.1f} s; phase 9 took {time.perf_counter() - t9:.1f} s")
         log_phase_end("phase 9")
+        t = time.perf_counter()
+        cluster_records = phase_cluster(smi, root)
+        log(f"phase 10 took {time.perf_counter() - t:.1f} s")
+        log_phase_end("phase 10")
     finally:
         tally.uninstall()
         codec.close()
@@ -3153,6 +3500,16 @@ def main() -> int:
         summary = _shape_summary(paths[path])
         for name in kernels:
             kernels[name][f"launches_by_class_{path}"] = summary[name]
+    # Phase 10's kernels ran in the four node processes: their codec records
+    # by node and step (encode batches launch both kernels, a verify batch
+    # the hash, a reconstruct batch the RS kernel).
+    stages_of = {"rs_gf_apply": ("encode-batch", "encode-batch-small", "reconstruct-batch"),
+                 "hh256": ("encode-batch", "encode-batch-small", "verify-batch")}
+    for name, stages in stages_of.items():
+        kernels[name]["codec_records_by_node"] = {
+            step: {node: {k: v for k, v in recs.items() if k in stages} for node, recs in by_node.items()}
+            for step, by_node in cluster_records.items()
+        }
     for path in ("put_get_degraded_get", "heal", "multipart"):
         suffix = "" if path == "put_get_degraded_get" else f"_{path}"
         kernels["hh256"][f"launches_by_n{suffix}"] = {str(n): c for n, c in paths[path]["hh256_by_n"].items()}

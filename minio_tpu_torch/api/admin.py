@@ -4,10 +4,11 @@ Role of the reference's admin handlers (cmd/admin-handlers*.go, mounted at
 /minio/admin/v3), mounted at /mtpu/admin/v1; every call is SigV4-signed and
 authorized against the admin:* action namespace. The port serves: /info,
 /service, /config, the users/groups/policies/service-accounts routes (IAM
-only), /chaos, /heal, /perf, /perf/slow and the profiling routes. Every other
-route of the JAX package's admin API is registered and answers 501
-NotImplemented naming the module it waits for (ROADMAP.md, Queue A items 7
-and 8). Peer fan-outs are skipped while ``notification`` is None (one node).
+only), /chaos, /heal, /perf, /perf/slow, the profiling routes, /toplocks,
+/force-unlock and /inspect; the fan-outs reach every peer through the node's
+NotificationSys. Every other route of the JAX package's admin API is
+registered and answers 501 NotImplemented naming the module it waits for
+(ROADMAP.md, Queue A item 8).
 """
 
 from __future__ import annotations
@@ -45,13 +46,10 @@ NOT_PORTED_ROUTES: tuple[tuple[str, str, str], ...] = (
     ("POST", "/update", "control/update.py"),
     ("GET", "/update", "control/update.py"),
     ("GET", "/kms/key/status", "control/kms.py (the admin KMS routes)"),
-    ("GET", "/inspect", "api/admin.py inspect (with dist/storage_rest.py)"),
     ("GET", "/pools/status", "object/poolmgr.py"),
     ("POST", "/pools/attach", "object/poolmgr.py"),
     ("POST", "/pools/decommission", "object/poolmgr.py"),
     ("POST", "/pools/rebalance", "object/poolmgr.py"),
-    ("GET", "/toplocks", "dist/locks.py"),
-    ("POST", "/force-unlock", "dist/locks.py"),
     ("GET", "/metrics", "control/metrics.py"),
     ("POST", "/speedtest", "control/selftest.py"),
     ("POST", "/speedtest/object", "control/selftest.py"),
@@ -85,6 +83,7 @@ class AdminContext:
     verifier: SigV4Verifier
     config: object | None = None
     healmgr: object | None = None
+    locker: object | None = None  # this node's LocalLocker (dist/locks.py)
     # The subsystems of later slices, read by the ported routes where the JAX
     # package's read them; None until those slices land.
     scanner: object | None = None  # DataScanner (usage in /info)
@@ -171,10 +170,52 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
             info["servers"] = ctx.notification.server_info_all()
         return info
 
-    def h_healthinfo(request, body):
-        from ..control.health import health_info
+    # -- inspect raw storage files (InspectDataHandler,
+    # cmd/admin-handlers.go:2198): the same file from EVERY drive, zipped,
+    # so operators can diff xl.meta copies across the set. ------------------
 
-        return health_info(ctx.layer)
+    def h_inspect(request, body):
+        import io
+        import zipfile
+
+        q = request.rel_url.query
+        volume, fname = q.get("volume", ""), q.get("file", "")
+        if not volume:
+            raise S3Error("InvalidBucketName")
+        if not fname:
+            raise S3Error("InvalidRequest", "file is required")
+        # Bounded per-copy read: inspect targets metadata-sized files
+        # (xl.meta); a multi-GiB shard file must not be buffered whole from
+        # 16 drives at once. Oversized copies are truncated and marked.
+        CAP = 32 << 20
+        buf = io.BytesIO()
+        found = 0
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
+            for pi, pool in enumerate(ctx.layer.pools):
+                for di, d in enumerate(pool.disks):
+                    if d is None:
+                        continue
+                    try:
+                        size = d.stat_file(volume, fname)
+                        raw = (
+                            d.read_all(volume, fname)
+                            if size <= CAP
+                            else d.read_file(volume, fname, 0, CAP)
+                        )
+                    except oerr.StorageError:
+                        continue
+                    found += 1
+                    name = f"pool{pi}/disk{di}/{volume}/{fname}"
+                    if size > CAP:
+                        name += ".truncated"
+                    z.writestr(name, raw)
+        if not found:
+            raise S3Error("NoSuchKey", resource=f"/{volume}/{fname}")
+        return web.Response(
+            body=buf.getvalue(),
+            content_type="application/zip",
+            headers={"Content-Disposition": 'attachment; filename="inspect.zip"'},
+        )
 
     # -- config --------------------------------------------------------------
 
@@ -414,6 +455,19 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
         return {"removed": removed}
 
 
+    # -- locks / service -----------------------------------------------------
+
+    def h_top_locks(request, body):
+        if ctx.locker is None:
+            return []
+        return ctx.locker.top_locks()
+
+    def h_force_unlock(request, body):
+        doc = json.loads(body)
+        if ctx.locker is not None:
+            ctx.locker.force_unlock(doc["resource"])
+        return {"ok": True}
+
     def h_service(request, body):
         doc = json.loads(body) if body else {}
         action = doc.get("action", "")
@@ -649,6 +703,9 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
     app.router.add_post("/heal", handler(h_heal_start))
     app.router.add_get("/heal/{seq}", handler(h_heal_status))
     app.router.add_post("/service", handler(h_service))
+    app.router.add_get("/inspect", handler(h_inspect))
+    app.router.add_get("/toplocks", handler(h_top_locks))
+    app.router.add_post("/force-unlock", handler(h_force_unlock))
     app.router.add_get("/perf", handler(h_perf))
     app.router.add_get("/perf/slow", handler(h_perf_slow))
     app.router.add_post("/profile/start", handler(h_profile_start))

@@ -9,6 +9,7 @@ reproduce exactly under a fixed seed.
 Layout:
   faults.py -- FaultSpec + FaultRegistry (the decision engine + budgets)
   disk.py   -- FaultyDisk, a StorageAPI decorator layered under MeteredDrive
+  net.py    -- the RestClient hook (storage-REST, peer fanout, RemoteLocker)
   crash.py  -- CrashSpec + CrashRegistry: named process-death points on the
                commit path (kind "crash" on the same admin API)
 

@@ -12,6 +12,11 @@ and admin on one port until SIGINT/SIGTERM.
 Usage:
     python -m minio_tpu_torch server /data/disk{1...16}
     python -m minio_tpu_torch server --device cpu /tmp/disk{1...4}
+    python -m minio_tpu_torch server --url http://10.0.0.1:9000 \
+        http://10.0.0.{1...4}:9000/mnt/disk{1...16}
+
+Every node of a cluster gets the same ordered endpoint list and its own
+``--url``; endpoints on other nodes are reached over storage REST.
 
 ``--device`` is the data plane's device: ``cuda`` (the default) probes the
 card in a bounded child and serves through its kernels; without a working
@@ -136,9 +141,9 @@ def _not_ported(what: str, module: str) -> int:
 
 def serve(argv: list[str]) -> int:
     p = argparse.ArgumentParser(prog="minio_tpu_torch server")
-    p.add_argument("endpoints", nargs="+", help="drive paths, {a...b} ellipses supported")
+    p.add_argument("endpoints", nargs="+", help="drive paths/URLs, {a...b} ellipses supported")
     p.add_argument("--address", default=":9000", help="listen address [HOST]:PORT")
-    p.add_argument("--url", default="", help="this node's advertised URL")
+    p.add_argument("--url", default="", help="this node's advertised URL (multi-node)")
     p.add_argument("--set-drive-count", type=int, default=0)
     p.add_argument("--parity", type=int, default=-1)
     p.add_argument("--region", default="")
@@ -169,7 +174,9 @@ def serve(argv: list[str]) -> int:
     # let each worker run this same body single-process: its own probe
     # child and codec on the card, binding the shared port with SO_REUSEPORT.
     # Gated on the platform probes in plan_workers (fork, SO_REUSEPORT, a
-    # real GIL).
+    # real GIL), as in the JAX package, remote endpoints or not: each worker
+    # then holds its own LocalLocker, and a peer's lock RPC reaches
+    # whichever worker accepts it (ROADMAP.md observations).
     from .api import prefork
 
     n_workers, why = prefork.plan_workers()
@@ -245,8 +252,10 @@ def serve(argv: list[str]) -> int:
     )
     app = node.make_app()
 
-    # Serve BEFORE build: requests that come before the probe's verdict and
-    # the format quorum answer 503 "server initializing".
+    # Serve BEFORE build: peers need this node's storage REST up to reach
+    # format quorum (server-main.go:495-521 starts dist routers first), and
+    # S3 requests that come before the probe's verdict and the format quorum
+    # answer 503 "server initializing".
     stop_evt = threading.Event()
     t, startup_errors = _run_app_until(app, host, port, stop_evt)
     if startup_errors:

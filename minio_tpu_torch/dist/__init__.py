@@ -1,5 +1,5 @@
-"""Node bootstrap of the port: one node over local drives (node.py).
-
-The JAX package's distribution layer (storage, lock and peer REST, dsync
-locks, transport) is not ported yet (ROADMAP.md, Queue A item 7).
+"""Distribution layer of the port: node bootstrap (node.py), the internode
+transport (transport.py), storage REST with remote drives (storage_rest.py),
+dsync locks (locks.py) and the peer control plane (peer.py), each a copy of
+the JAX package's module speaking the same wire.
 """

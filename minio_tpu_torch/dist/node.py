@@ -1,19 +1,20 @@
 """Node bootstrap: endpoints -> drives -> format consensus -> full server.
 
 Role of the reference's server-main.go serverMain (:422) + endpoint.go
-CreateEndpoints (:538) + prepare-storage.go waitForFormatErasure, for one
-node over local drives: it opens each path as the metered, breaker-gated,
-fault-injectable drive stack, installs the data-plane codec (runtime.py:
+CreateEndpoints (:538) + prepare-storage.go waitForFormatErasure: each node
+is given the SAME ordered endpoint list; it opens local paths as the
+metered, breaker-gated, fault-injectable drive stack and remote paths
+through the storage REST proxy, installs the data-plane codec (runtime.py:
 the device probe, then the batching codec on the card), reaches format.json
-quorum per pool (creating fresh formats when the pool is unformatted),
-assembles the erasure pools and the control plane, and serves S3 + admin on
-one port.
+quorum per pool (creating fresh formats when the whole pool is unformatted
+and this node is the leader = owner of the first endpoint), assembles the
+erasure pools and the control plane, and serves S3 + admin + storage, lock
+and peer REST on one port.
 
-Left for later, each at its site below: the storage, lock and peer REST
-routers, the dsync NamespaceLock and remote drives (ROADMAP.md, Queue A
-item 7); the pool manager, disk/memory caches, metrics, event targets, the
-scanner, TierConfigMgr, replication, site replication, the flight recorder,
-the console and the etcd IAM store (Queue A item 8).
+Left for later, each at its site below: the pool manager, disk/memory
+caches, metrics, event targets, the scanner, TierConfigMgr, replication,
+site replication, the flight recorder, the console and the etcd IAM store
+(ROADMAP.md, Queue A item 8).
 """
 
 from __future__ import annotations
@@ -36,6 +37,11 @@ from ..storage import format as fmt_mod
 from ..storage.interface import StorageAPI
 from ..storage.local import LocalDrive
 from ..utils import errors
+from .locks import LOCK_PREFIX, LocalLocker, NamespaceLock, RemoteLocker, make_lock_app
+from .peer import PEER_PREFIX, NotificationSys, PeerClient, make_peer_app
+from .storage_rest import PREFIX as STORAGE_PREFIX
+from .storage_rest import RemoteDrive, make_storage_app
+from .transport import cluster_token
 
 
 @dataclass
@@ -86,12 +92,15 @@ class Node:
             pool_specs = [list(endpoints)]
         self.pool_endpoints = [[Endpoint.parse(e) for e in pool] for pool in pool_specs]
         self.endpoints = [ep for pool in self.pool_endpoints for ep in pool]
+        self.token = cluster_token(root_password)
         self.creds = Credentials(root_user, root_password)
         self.region = region
         self.codec = codec
         self.device = device
         self._own_codec = None  # the codec build() installed, closed by close()
 
+        # Drive construction: local paths open directly, remote via REST.
+        peer_urls: set[str] = set()
         from ..chaos.disk import FaultyDisk
         from ..control.pubsub import GLOBAL_TRACE
         from ..storage.breaker import HealthGatedDrive
@@ -103,12 +112,9 @@ class Node:
             drives: list[StorageAPI] = []
             for ep in pool:
                 if not (ep.is_local_path or ep.url == self.url):
-                    # Remote drives go through the storage REST client
-                    # (dist/storage_rest.py), which is not ported.
-                    raise NotImplementedError(
-                        f"endpoint {ep.url}{ep.path} is not on this node: remote drives "
-                        "wait for dist/storage_rest.py (ROADMAP.md, Queue A item 7)"
-                    )
+                    peer_urls.add(ep.url)
+                    drives.append(RemoteDrive(ep.url, ep.path, self.token))
+                    continue
                 # Local drives are metered (per-API latency EWMAs + storage
                 # traces, xl-storage-disk-id-check.go role) over the circuit
                 # breaker + admission gate (storage/breaker.py) over the
@@ -126,6 +132,7 @@ class Node:
                 drives.append(d)
             self.pool_drives.append(drives)
         self.drives = [d for pool in self.pool_drives for d in pool]
+        self.peer_urls = sorted(peer_urls)
 
         # One set size must fit every pool (the reference requires per-pool
         # divisibility too; set count may differ per pool).
@@ -138,14 +145,17 @@ class Node:
                 )
         self.parity = parity
         self.rrs_parity = rrs_parity
+        # Leader = the node owning the first endpoint (server-main.go:507
+        # "first local" orchestrates format).
+        first = self.endpoints[0]
+        self.is_leader = first.is_local_path or first.url == self.url
 
+        self.locker = LocalLocker()
         self.iam: IAMSys | None = None
         self.s3: S3Server | None = None
         self.pools: ServerPools | None = None
-        # Peer fan-out (dist/peer.py NotificationSys) waits for Queue A
-        # item 7; the admin routes skip it when it is None, as in a
-        # single-node JAX deployment.
-        self.notification = None
+        self.ns_lock: NamespaceLock | None = None
+        self.notification: NotificationSys | None = None
 
     # -- format consensus ----------------------------------------------------
 
@@ -166,16 +176,20 @@ class Node:
         deployment_id: str | None = None,
     ) -> fmt_mod.DriveFormat:
         """Reach format quorum for one pool's drives, creating fresh formats
-        if the whole pool is unformatted (prepare-storage.go role; the leader
-        that formats is the node owning the first endpoint, server-main.go:507,
-        which a single node always is). Pools after the first inherit the
+        if the whole pool is unformatted, every drive answers and this node
+        leads (prepare-storage.go role). Pools after the first inherit the
         cluster deployment id."""
         drives = self.drives if drives is None else drives
         deadline = time.monotonic() + timeout
         while True:
             formats = self._read_formats(drives)
             n_fmt = sum(1 for f in formats if f is not None)
-            if n_fmt == 0:
+            # A fresh pool is formatted only once every drive answers: a drive
+            # whose node is not serving yet would stay unformatted, and the
+            # quorum out of reach (the reference formats only when all disks
+            # report errUnformattedDisk, prepare-storage.go; the JAX node
+            # formats the drives it can reach).
+            if n_fmt == 0 and self.is_leader and all(d.is_online() for d in drives):
                 n_sets = len(drives) // self.set_drive_count
                 fresh = fmt_mod.init_format(
                     n_sets, self.set_drive_count, deployment_id=deployment_id
@@ -267,9 +281,12 @@ class Node:
                 )
             )
         self.pools = ServerPools(pool_sets)
-        # The dsync NamespaceLock over local and remote lockers waits for
-        # dist/locks.py (Queue A item 7); the object layer keeps its local
-        # lock stripes.
+        lockers: list = [self.locker] + [RemoteLocker(u, self.token) for u in self.peer_urls]
+        self.ns_lock = NamespaceLock(lockers)
+        self.pools.ns_lock = self.ns_lock
+        for sets in pool_sets:
+            for s in sets.sets:
+                s.ns_lock = self.ns_lock
         self.iam = IAMSys(self.creds.access_key, self.creds.secret_key)
         from ..control import kms as kms_mod
         from ..control.kms import StaticKeyKMS, kms_from_env
@@ -282,8 +299,12 @@ class Node:
         self.kms = kms_from_env()
         if self.kms is None and kms_mod.AESGCM is not None:
             self.kms = StaticKeyKMS()
+        self.notification = NotificationSys(
+            [PeerClient(u, self.token) for u in self.peer_urls]
+        )
         # The pool manager (object/poolmgr.py: attach, decommission,
-        # rebalance and the persisted pool config) waits for Queue A item 8.
+        # rebalance, and the replay of the persisted pool config over the
+        # peers' poolsreload verb) waits for Queue A item 8.1.
 
         # Control plane assembly (newAllSubsystems role, server-main.go:451).
         from ..control.config import ConfigStore, ConfigSys
@@ -304,6 +325,7 @@ class Node:
         # persistence for this process instead of risking an empty snapshot
         # overwriting the real one on the next mutation.
         self.iam.store = store
+        self.iam.ns_lock = self.ns_lock
         try:
             self.iam.load()
         except errors.FileCorrupt:
@@ -313,6 +335,7 @@ class Node:
             raise
         except errors.StorageError as e:
             self.iam.store = None
+            self.iam.ns_lock = None
             GLOBAL_LOGGER.error(
                 f"IAM store (erasure config store) unreadable at boot ({e}); IAM "
                 "persistence DISABLED for this process -- identities created now "
@@ -333,8 +356,14 @@ class Node:
         self.logger = GLOBAL_LOGGER
         s3.trace = self.trace
         s3.logger = self.logger
-        # Metrics, event notifier and targets, scanner, tiering,
-        # replication and site replication wait for Queue A item 8.
+        # Every durable bucket-meta mutation (from ANY writer: S3 handlers,
+        # the target registry, quota admin) broadcasts the peer
+        # invalidation -- the meta cache has no TTL.
+        s3.bucket_meta.on_change = lambda b: self.notification.reload_bucket_meta_all(b)
+        # s3.peer_notification (the cluster-wide listen and trace merge)
+        # waits for the event notifier and api/streams.py (Queue A item
+        # 8.3). Metrics, event targets, scanner, tiering, replication and
+        # site replication wait for Queue A item 8.
         self.healmgr = HealManager(self.pools)
         self.mrf = MRFQueue(self.pools)
         # Feed the MRF from every erasure set: a put that met quorum but
@@ -417,12 +446,16 @@ class Node:
         GLOBAL_LOGGER.close()
 
     def make_app(self) -> web.Application:
-        """One aiohttp app: admin first, S3 catch-all last (routers.go:65
-        ordering). Servable BEFORE build() -- the S3 handler and the admin
-        routes answer 503 until the object layer is up. The storage, lock
-        and peer routers (Queue A item 7) and the console (item 8) are not
-        mounted."""
+        """One aiohttp app: internode routers first, then admin, S3 catch-all
+        last (routers.go:65 ordering). Servable BEFORE build() -- the S3
+        handler and the admin routes 503 until the object layer is up, so
+        peers can reach this node's storage REST during the format handshake
+        (the reference starts its dist routers before waitForFormatErasure
+        too, server-main.go:495-521). The console waits for Queue A item 8."""
         app = web.Application(client_max_size=1 << 31)
+        app.add_subapp(STORAGE_PREFIX, make_storage_app(self.local_drives, self.token))
+        app.add_subapp(LOCK_PREFIX, make_lock_app(self.locker, self.token))
+        app.add_subapp(PEER_PREFIX, make_peer_app(self, self.token))
         from ..api.admin import ADMIN_PREFIX, make_admin_app
 
         app.add_subapp(ADMIN_PREFIX, make_admin_app(_LazyAdminContext(self)))
@@ -470,6 +503,10 @@ class _LazyAdminContext:
     @property
     def healmgr(self):
         return getattr(self._node, "healmgr", None)
+
+    @property
+    def locker(self):
+        return self._node.locker
 
     @property
     def notification(self):

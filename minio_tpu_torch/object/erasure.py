@@ -698,37 +698,19 @@ class ShardStageWriter:
         return [h.digest() for h in self._hashers]
 
 
-class _NamespaceLock:
-    """Process-local per-object writer lock (the single-node default of the
-    reference's NSLock). new(bucket, object) returns a lock with the
-    acquire(writer=..., timeout=...) / release() interface the PUT path
-    uses. Objects hash onto a fixed set of stripes, so the lock table stays
-    bounded however many objects a process writes; two objects sharing a
-    stripe only serialize their commits."""
-
-    _STRIPES = 1024
-
-    def __init__(self):
-        self._locks = [threading.Lock() for _ in range(self._STRIPES)]
-
-    def new(self, bucket: str, object_name: str) -> "_NamespaceLockHandle":
-        return _NamespaceLockHandle(self._locks[hash((bucket, object_name)) % self._STRIPES])
+_NS_LOCK_SINGLETON = None
+_NS_LOCK_GUARD = threading.Lock()
 
 
-class _NamespaceLockHandle:
-    __slots__ = ("_lock",)
+def _process_ns_lock():
+    """Shared per-process namespace lock (single-node default)."""
+    global _NS_LOCK_SINGLETON
+    with _NS_LOCK_GUARD:  # sets built in parallel must share one lock
+        if _NS_LOCK_SINGLETON is None:
+            from ..dist.locks import NamespaceLock
 
-    def __init__(self, lock: threading.Lock):
-        self._lock = lock
-
-    def acquire(self, writer: bool = True, timeout: float = -1) -> bool:
-        return self._lock.acquire(timeout=timeout)
-
-    def release(self) -> None:
-        self._lock.release()
-
-
-_NS_LOCK_SINGLETON = _NamespaceLock()
+            _NS_LOCK_SINGLETON = NamespaceLock()
+        return _NS_LOCK_SINGLETON
 
 
 def default_parity(drive_count: int) -> int:
@@ -869,9 +851,10 @@ class ErasureObjects:
         # repair (the reference's addPartial -> MRF feed,
         # cmd/erasure-object.go:1430).
         self.on_partial = None
-        # Namespace lock: serializes writers per object (process-local; the
-        # reference's NSLock, cmd/erasure-object.go:933-941).
-        self.ns_lock = ns_lock if ns_lock is not None else _NS_LOCK_SINGLETON
+        # Namespace lock: serializes writers per object. Defaults to a
+        # process-local locker; Node.build swaps in the dsync quorum lockers
+        # (reference: NSLock via dsync, cmd/erasure-object.go:933-941).
+        self.ns_lock = ns_lock if ns_lock is not None else _process_ns_lock()
         # Bucket-info cache: every object op starts with a bucket check that
         # fans a stat_vol to all drives. Positive entries only, short TTL (the
         # reference keeps buckets in an always-warm metadata cache,

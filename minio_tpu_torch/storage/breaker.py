@@ -30,7 +30,6 @@ sustained shedding into SlowDown 503s with Retry-After.
 
 from __future__ import annotations
 
-import random
 import threading
 import time
 
@@ -38,13 +37,6 @@ from ..control.degrade import GLOBAL_DEGRADE
 from ..utils import errors
 from .metered import _METERED
 from ..control.sanitizer import san_lock, san_rlock
-
-
-def jitter(seconds: float, frac: float = 0.10) -> float:
-    """Spread a probe interval by ±frac, so breakers tripped at the same
-    instant do not probe in lockstep. A copy of ``jitter`` in the JAX
-    package's ``dist/transport.py``, which the port has not taken yet."""
-    return seconds * (1.0 + random.uniform(-frac, frac))
 
 # Gate the same call set MeteredDrive times: everything that hits the disk.
 _GATED = _METERED
@@ -168,6 +160,8 @@ class CircuitBreaker:
         real call against the inner drive. Success closes the breaker;
         failure re-opens with a grown cool-down (capped), so a dead drive
         is probed ever more lazily instead of hammered."""
+        from ..dist.transport import jitter
+
         while not self._closed_evt.wait(jitter(self._current_cooldown)):
             with self._lock:
                 if self.state == CLOSED:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import hashlib
 import http.client
+import io
 import json
 import os
 import re
@@ -32,6 +33,7 @@ import sys
 import threading
 import time
 import uuid
+import zipfile
 from types import SimpleNamespace
 
 import numpy as np
@@ -276,6 +278,11 @@ def _script(c: Client, heal_seq: dict, log: dict, side: Side) -> None:
     log["service"] = c.json("POST", f"{ADMIN}/service", {"action": "restart"})
     log["config-bad-key"] = c.json("PUT", f"{ADMIN}/config", {"subsys": "compression", "key": "nope", "value": "x"})
     log["unsigned-admin"] = c.send("GET", f"{ADMIN}/info", sign=False).status
+    log["toplocks"] = c.json("GET", f"{ADMIN}/toplocks")
+    log["force-unlock"] = c.json("POST", f"{ADMIN}/force-unlock", {"resource": "bkt/tiny"})
+    r = c.send("GET", f"{ADMIN}/inspect", query=[("volume", "bkt"), ("file", "tiny/xl.meta")])
+    log["inspect"] = (r.status, r.ctype, sorted(zipfile.ZipFile(io.BytesIO(r.body)).namelist()))
+    log["inspect-missing"] = c.json("GET", f"{ADMIN}/inspect", query=[("volume", "bkt"), ("file", "nope")])
 
 
 RESTART_GETS = ("tiny", "small", "max")
@@ -384,7 +391,7 @@ def _same_json(name: str, j, p, root_j: str = "", root_p: str = "") -> None:
 EXACT_STEPS = ["make-bucket"] + [f"put-{n}" for n in SIZES] + [f"get-{n}" for n in SIZES] + [
     "put-mrf", "chaos-disarm", "mrf", "get-mrf", "heal-start", "profile-start", "profile-stop", "config-set",
     "config-get", "put-compressed", "get-compressed", "user-add", "users", "service", "config-bad-key",
-    "unsigned-admin", "chaos-arm",
+    "unsigned-admin", "chaos-arm", "toplocks", "force-unlock", "inspect", "inspect-missing",
 ]
 
 
@@ -408,8 +415,10 @@ def test_object_bodies_are_the_seeded_bytes(boot):
 def test_info_equal_by_shape(boot, tmp_path_factory):
     j, p = boot.log["jax"]["info"], boot.log["port"]["info"]
     assert p[0] == j[0] == 200
-    # "usage" (the scanner) and "servers" (the peer fan-out) wait for later slices.
-    jdoc = {k: v for k, v in j[1].items() if k not in ("usage", "servers")}
+    # "usage" (the scanner) waits for a later slice; "servers" is the peer
+    # fan-out, empty on one node in both packages.
+    jdoc = {k: v for k, v in j[1].items() if k != "usage"}
+    assert p[1]["servers"] == j[1]["servers"] == []
     roots = [os.path.dirname(d["endpoint"]) for d in (j[1]["drives"][0], p[1]["drives"][0])]
     assert shape(p[1], roots[1]) == shape(jdoc, roots[0])
     assert p[1]["drivesOnline"] == 12 and p[1]["drivesOffline"] == 0
@@ -674,7 +683,16 @@ def test_boot_self_test_passes_with_the_jax_goldens():
     cli.boot_self_test()
 
 
-def test_remote_endpoint_waits_for_the_distribution_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        Node(["http://10.0.0.2:9000/d1", "http://10.0.0.2:9000/d2"], url="http://10.0.0.1:9000",
-             device="cpu")
+def test_remote_endpoint_becomes_a_remote_drive(tmp_path):
+    from minio_tpu_torch.dist.storage_rest import RemoteDrive
+
+    local = [str(tmp_path / f"d{i}") for i in range(2)]
+    node = Node([f"http://10.0.0.1:9000{local[0]}", f"http://10.0.0.1:9000{local[1]}",
+                 "http://10.0.0.2:9000/d1", "http://10.0.0.2:9000/d2"], url="http://10.0.0.1:9000", device="cpu")
+    try:
+        remote = [d for d in node.drives if isinstance(d, RemoteDrive)]
+        assert [d.endpoint() for d in remote] == ["http://10.0.0.2:9000/d1", "http://10.0.0.2:9000/d2"]
+        assert sorted(node.local_drives) == local
+        assert node.peer_urls == ["http://10.0.0.2:9000"] and node.is_leader
+    finally:
+        node.close()

@@ -61,10 +61,13 @@ def _request(port: int, method: str, path: str, body=b"", creds=ROOT, timeout=60
 class Server:
     """One `python -m minio_tpu_torch server` process and its output."""
 
-    def __init__(self, drives: str, device: str | None = "cpu", env: dict | None = None):
-        self.port = _free_port()
+    def __init__(self, drives: str | list, device: str | None = "cpu", env: dict | None = None,
+                 port: int | None = None, url: str = ""):
+        self.port = port or _free_port()
         args = [sys.executable, "-m", "minio_tpu_torch", "server", "--address", f"127.0.0.1:{self.port}",
-                "--json", drives]
+                "--json", *([drives] if isinstance(drives, str) else drives)]
+        if url:
+            args += ["--url", url]
         if device is not None:
             args[4:4] = ["--device", device]
         full_env = dict(os.environ, PYTHONPATH=str(REPO), MINIO_ROOT_USER=ROOT[0], MINIO_ROOT_PASSWORD=ROOT[1],
@@ -75,6 +78,7 @@ class Server:
         self.lines: list[str] = []
         self.err: list[str] = []
         self._online = threading.Event()
+        self._listening = threading.Event()
         self._threads = [threading.Thread(target=self._read, args=(self.proc.stdout, self.lines), daemon=True),
                          threading.Thread(target=self._read, args=(self.proc.stderr, self.err), daemon=True)]
         for t in self._threads:
@@ -85,6 +89,11 @@ class Server:
             sink.append(line)
             if '"msg": "online"' in line:
                 self._online.set()
+            if '"msg": "listening"' in line:
+                self._listening.set()
+
+    def wait_listening(self, timeout: float = 60.0) -> None:
+        assert self._listening.wait(timeout), (self.lines, self.err)
 
     def wait_online(self, timeout: float = 90.0) -> dict:
         assert self._online.wait(timeout), (self.lines, self.err)
@@ -196,3 +205,36 @@ def test_unported_commands_exit_2_naming_the_module(tmp_path, monkeypatch, capsy
     argv = [a.format(root=tmp_path) for a in argv]
     assert cli.main(argv) == 2
     assert module in capsys.readouterr().err
+
+
+def test_two_processes_form_a_cluster(tmp_path):
+    """Two `server --device cpu --url ...` processes over one endpoint list
+    (2 nodes x 2 drives, one EC:1 set). The leader (the owner of the first
+    endpoint) is listening, and so formatting, before the other node starts:
+    it formats only once the other node's drives answer. A PUT on one node
+    GETs byte-exact on the other, and both exit 0 on SIGTERM."""
+    ports = [_free_port(), _free_port()]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    endpoints = [f"{urls[n]}{tmp_path}/n{n}d{d}" for n in range(2) for d in range(2)]
+    nodes = [None, None]
+    try:
+        nodes[0] = Server(endpoints, port=ports[0], url=urls[0])
+        nodes[0].wait_listening()
+        time.sleep(1.0)  # the leader's format wait finds the other node's drives unreachable
+        assert not nodes[0]._online.is_set()
+        nodes[1] = Server(endpoints, port=ports[1], url=urls[1])
+        online = [n.wait_online() for n in nodes]
+        assert [(o["drives"], o["pools"], o["sets"]) for o in online] == [(4, 1, 1)] * 2
+        formats = [json.loads((tmp_path / f"n{n}d{d}" / ".minio_tpu.sys" / "format.json").read_text())
+                   for n in range(2) for d in range(2)]
+        assert len({f["id"] for f in formats}) == 1 and len({f["erasure"]["this"] for f in formats}) == 4
+        assert _request(ports[0], "PUT", "/clustered")[0] == 200
+        assert _request(ports[0], "PUT", "/clustered/a", BODY)[0] == 200
+        assert _request(ports[1], "GET", "/clustered/a") == (200, BODY)
+        assert _request(ports[1], "PUT", "/clustered/b", BODY[:5000])[0] == 200
+        assert _request(ports[0], "GET", "/clustered/b") == (200, BODY[:5000])
+        status, body = _request(ports[0], "GET", "/mtpu/admin/v1/info")
+        assert status == 200 and [s["node"] for s in json.loads(body)["servers"]] == [urls[1]]
+    finally:
+        rcs = [n.stop() if n is not None else None for n in nodes]
+    assert rcs == [0, 0], (nodes[0].err, nodes[1].err)

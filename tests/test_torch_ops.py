@@ -528,6 +528,20 @@ def test_import_checks_cover_the_host_side():
     assert not list((PORT / "csrc").glob("*.cpp"))  # the nvcc build globs csrc/*.cu only
 
 
+def test_import_checks_cover_distribution():
+    mods = _port_modules()
+    for m in ("dist.transport", "dist.storage_rest", "dist.locks", "dist.peer", "chaos.net"):
+        assert f"minio_tpu_torch.{m}" in mods
+        assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
+    # The breaker takes jitter from the transport, as the JAX breaker does,
+    # and the object layer keeps no process-local lock of its own.
+    from minio_tpu_torch.object import erasure
+    from minio_tpu_torch.storage import breaker
+
+    assert not hasattr(breaker, "jitter")
+    assert not hasattr(erasure, "_NamespaceLock")
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"
