@@ -107,9 +107,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (api/streaming.encode_chunked), as minio-go does, and compares every
    body it reads with the bytes it made from the same seeds. Paths, each
    with the counts reset before it and read after:
-   - http_put: 512 new objects (tenant-XX/YYYY-MM-DD/http-NNNNN, phase 5's
+   - http_put: 256 new objects (tenant-XX/YYYY-MM-DD/http-NNNNN, phase 5's
      size law, one in 8 REDUCED_REDUNDANCY); both kernels;
-   - http_get: those 512 and 256 of phase 5's surviving objects in pool 0
+   - http_get: those 256 and 256 of phase 5's surviving objects in pool 0
      (pool 1's lost one drive's copy to phase 5's heal_bucket check),
      byte-exact; hh256, and rs_gf_apply only for windows where a hedged
      spare read beat a slow primary (at most 2 launches a winning hedge).
@@ -188,8 +188,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      <root>/boot/p0/drive{00...31} and <root>/boot/p1/drive{00...15}
      (48 drives, two pools, three 12+4 sets): the online line must name
      BatchingDeviceCodec, 48 drives, 2 pools, 3 sets; the seconds from the
-     spawn to online and to the first 200 PUT (503 before it); 256 objects
-     of phase 5's size law from 16 threads and one 128 MiB aws-chunked PUT,
+     spawn to online and to the first 200 PUT (503 before it); 128 objects
+     of phase 5's size law from 16 threads and one 64 MiB aws-chunked PUT,
      read back byte-exact; /perf's stage ledger with codec encode-batch and
      verify-batch records and the probe on gpu; a user added over admin;
      SIGTERM rc 0 within 15 s; a restart, booted with
@@ -221,8 +221,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      layout at MTPU_WORKERS = 1, 2 and 4 in turn (the one-worker boot
      formats the drives; MTPU_WORKER_RESPAWNS=1): the seconds from the
      spawn until every worker is online, each worker's online line with
-     its pid and its own probe's PROBE_OK gpu verdict, 128 PUTs of phase
-     5's size law from phase 6's 16-thread client and 128 byte-exact GETs
+     its pid and its own probe's PROBE_OK gpu verdict, 64 PUTs of phase
+     5's size law from phase 6's 16-thread client and 64 byte-exact GETs
      (objects/s, p50 and p99), the gil_load of whichever worker answered
      /profile, how the kernel spread 16 new connections over the workers
      (from /proc), and SIGTERM to the master: rc 0 and no worker left.
@@ -277,6 +277,10 @@ The line before the last is a JSON object describing each kernel, with its
 launches by path (phase 7's and phase 8a's included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
+
+The script is the child subreaper of the processes it starts: each
+phase's end prints the live processes below it, and its end (or a
+SIGTERM, which unwinds it as an exit) stops and reaps whatever is left.
 """
 
 from __future__ import annotations
@@ -323,7 +327,100 @@ def log(*args) -> None:
 
 
 def log_phase_end(phase: str) -> None:
-    log(f"{phase} done at {time.perf_counter() - T0:.1f} s since start")
+    below = _descendants()
+    log(f"{phase} done at {time.perf_counter() - T0:.1f} s since start; processes below this one: "
+        + ("; ".join(f"pid {pid} {cmd}" for pid, cmd in below) if below else "none"))
+
+
+def _become_subreaper() -> bool:
+    """Make this process the child subreaper of all it starts (prctl
+    PR_SET_CHILD_SUBREAPER): a process orphaned below it, such as a server's
+    probe child in its own session when the server is SIGKILLed, is then
+    reparented here, where _descendants sees it and _stop_descendants stops
+    it."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:200]
+    except OSError:
+        return "?"
+
+
+def _descendants() -> list[tuple[int, str]]:
+    """(pid, command line) of every live process below this one, from /proc;
+    zombies are left out."""
+    children = collections.defaultdict(list)
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        children[int(ppid)].append((int(name), state))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for pid, state in children.pop(todo.pop(), ()):
+            todo.append(pid)
+            if state != "Z":
+                out.append((pid, _cmdline(pid)))
+    return out
+
+
+def _exit_on_sigterm(signum, frame) -> None:
+    """SIGTERM (a time limit's kill) unwinds the main thread as an exit, so
+    that each phase's finally stops the servers it started and the end
+    stops whatever else is left."""
+    raise SystemExit(128 + signum)
+
+
+def _reap_zombies() -> None:
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
+
+
+def _stop_descendants(grace_s: float = 10.0) -> list[str]:
+    """At the script's end, stop every process still below this one and
+    reap it: SIGTERM, then SIGKILL after `grace_s`; the multiprocessing
+    resource tracker (which outlives the last spawned process until it
+    reads the end of its pipe) by its own shutdown once nothing else is
+    left. Returns "pid command line" of each process it had to signal."""
+    from multiprocessing import resource_tracker
+
+    tracker = getattr(resource_tracker._resource_tracker, "_pid", None)
+    signalled = []
+    for sig, wait_s in ((signal.SIGTERM, grace_s), (signal.SIGKILL, 5.0)):
+        left = [(pid, cmd) for pid, cmd in _descendants() if pid != tracker]
+        for pid, cmd in left:
+            with contextlib.suppress(OSError):
+                os.kill(pid, sig)
+            if sig == signal.SIGTERM:
+                signalled.append(f"pid {pid} {cmd}")
+        deadline = time.monotonic() + wait_s
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            _reap_zombies()
+            left = [p for p in _descendants() if p[0] != tracker]
+    with contextlib.suppress(Exception):  # noqa: BLE001 - the sweep below stops it all the same
+        resource_tracker._resource_tracker._stop()
+    for pid, cmd in _descendants():
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+        signalled.append(f"pid {pid} {cmd}")
+    time.sleep(0.1 if signalled else 0)
+    _reap_zombies()
+    return signalled
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -482,8 +579,15 @@ def phase_kernels(dev: torch.device) -> dict:
         f"(plain {rs_plain_ms:.2f} ms, torch fp16 bit-matmul {rs_lib_ms:.4f} ms, bound {rs_bound_ms:.4f} ms)")
 
     # -- kernel 2: HighwayHash-256 -----------------------------------------
-    def hash_err(x: torch.Tensor) -> int:
-        return max_abs_err(highwayhash_cuda.hash256_batch(x), highwayhash_torch.hash256_batch(x))
+    # The kernel runs on each input as it is made; the plain version, whose
+    # time grows with the row length and hardly with the row count, then
+    # meets all the inputs of one length in one call (rows hash alone).
+    by_length = collections.defaultdict(lambda: ([], []))
+
+    def check(x: torch.Tensor) -> None:
+        inputs, outputs = by_length[x.shape[-1]]
+        inputs.append(x)
+        outputs.append(highwayhash_cuda.hash256_batch(x))
 
     def plain_timed(x: torch.Tensor) -> tuple[torch.Tensor, float]:
         t0 = time.perf_counter()
@@ -500,21 +604,23 @@ def phase_kernels(dev: torch.device) -> dict:
     for n in (1, 16, 17, 1024):
         for length in lengths:
             if length != S_FULL or n not in (16, 1024):
-                herr = max(herr, hash_err(rand((n, length))))
+                check(rand((n, length)))
     # Rows whose base lies off a 16-byte boundary: views into one flat buffer.
     offsets = range(1, 16)
     for length in lengths:
         buf = rand((16 + 17 * length,))
-        views = [buf[off : off + 17 * length].view(17, length) for off in offsets]
-        got = torch.cat([highwayhash_cuda.hash256_batch(v) for v in views])
-        herr = max(herr, max_abs_err(got, highwayhash_torch.hash256_batch(torch.cat(views))))
+        for off in offsets:
+            check(buf[off : off + 17 * length].view(17, length))
     # The 14+2 full-block row (1 MiB / 14) and the small path's true row
     # lengths (shards of 1 KiB .. 1 MiB objects over 12 and 14 data rows).
     small_lengths = (86, 74, 342, 293, 1366, 2731, 10923, 43691, 87381)
     for n in (1, 16, 64):
-        herr = max(herr, hash_err(rand((n, S_RRS))))
+        check(rand((n, S_RRS)))
         for length in small_lengths:
-            herr = max(herr, hash_err(rand((n * 16, length))))
+            check(rand((n * 16, length)))
+    for inputs, outputs in by_length.values():
+        herr = max(herr, max_abs_err(torch.cat(outputs), highwayhash_torch.hash256_batch(torch.cat(inputs))))
+    del by_length
     torch.cuda.synchronize()
     if herr:
         raise AssertionError(f"hh256 disagrees with its plain version: max abs err {herr}")
@@ -1850,7 +1956,7 @@ def _percentile(values: list, q: float) -> float:
 
 
 def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: dict, rates: dict,
-               n_put: int = 512, n_get_old: int = 256, big_mib: int = 128, part_mib: int = 8,
+               n_put: int = 256, n_get_old: int = 256, big_mib: int = 128, part_mib: int = 8,
                threads: int = HTTP_THREADS, seed: int = 6, degraded_set: int = 0) -> dict:
     """Phase 5's deployment behind the port's S3Server, driven by signed
     HTTP from a client process: see the module docstring."""
@@ -2040,7 +2146,7 @@ def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: d
         own, _, _ = _list_all(layer, "bench", max_keys=1000)
         if listed["keys"] != own:
             raise AssertionError(f"ListObjectsV2: {len(listed['keys'])} keys, the layer lists {len(own)}")
-        gone = new.names[: min(128, n_put // 4)]
+        gone = new.names[: min(128, n_put // 2)]
         client.call("delete", gone)
         after_delete = client.call("list_v2", "", 1000)
         if set(gone) & set(after_delete["keys"]) or len(after_delete["keys"]) != len(own) - len(gone):
@@ -2659,8 +2765,8 @@ def server_stages(client, label: str) -> dict:
     return perf
 
 
-def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_objects: int = 256,
-                   big_mib: int = 128, crash_mib: int = 4, max_size: int = 4 * MiB,
+def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_objects: int = 128,
+                   big_mib: int = 64, crash_mib: int = 4, max_size: int = 4 * MiB,
                    threads: int = HTTP_THREADS) -> None:
     """8b: the real CLI over 48 drives in two pools (32 + 16, three 12+4
     sets): boot, traffic, SIGTERM, restart, a crash and the recovery boot."""
@@ -3026,7 +3132,7 @@ def _wait_workers(srv, n: int, timeout: float) -> tuple[float, list]:
 
 
 def phase_prefork(smi: str, root: str, device: str = "cuda", workers: tuple = (1, 2, 4),
-                  n_objects: int = 128, n_kill: int = 64, max_size: int = 4 * MiB,
+                  n_objects: int = 64, n_kill: int = 64, max_size: int = 4 * MiB,
                   threads: int = HTTP_THREADS) -> None:
     """9b and 9c: `python3 -m minio_tpu_torch server` on phase 8b's 48-drive
     two-pool deployment at MTPU_WORKERS = 1, 2, 4 in turn (the one-worker
@@ -3449,6 +3555,8 @@ def main() -> int:
         return 1
     from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
 
+    signal.signal(signal.SIGTERM, _exit_on_sigterm)
+    log(f"child subreaper: {_become_subreaper()}")
     dev = torch.device("cuda", 0)
     smi = phase_gpu_and_build()
     kernels = phase_kernels(dev)
@@ -3516,6 +3624,8 @@ def main() -> int:
         kernels["rs_gf_apply"][f"launches_by_b_r{suffix}"] = {
             f"B={b},R={r}": c for (b, r), c in paths[path]["rs_gf_apply_by_b_r"].items()
         }
+    stopped = _stop_descendants()
+    log(f"processes left below this one at the end, stopped: {'; '.join(stopped) if stopped else 'none'}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -3524,4 +3634,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for line in _stop_descendants():
+            print(f"chip_smoke: stopped a process left below it: {line}", file=sys.stderr)
+    sys.exit(rc)
