@@ -70,23 +70,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    14+2, SIPMOD+PARITY), built by ErasureSets.from_drives; pool 1 is 16
    drives, 1 set, attached later by ServerPools.add_pool (SUSPENDED, then
    ACTIVE) while pool 0 turns DRAINING. Every set shares the phase's codec.
-   1,024 objects from one numpy generator (names
+   768 objects (1,024 before the cut that made room for phase 11, 2,048
+   before the one for phase 10) from one numpy generator (names
    tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants and 8 days, sizes
    log-uniform from 1 KiB to 4 MiB, one in 8 REDUCED_REDUNDANCY), from 16
-   client threads: 768 PUT into pool 0; 32 of them, of every size class
+   client threads: 576 PUT into pool 0; 32 of them, of every size class
    and both storage classes, PUT again into a numpy HostCodec copy of
    pool 0 must leave the same part files and inline data; the listing of
    pool 0 is exact in pages of 1,000 with and without a delimiter and a
    prefix, its second page served by the metacache, and
    list_object_versions pages through versioned overwrites and a delete
    marker with key and version markers; after the attach the
-   other 256 and 64 overwrites of pool-0 keys land in pool 1; every object's
-   xl.meta lies only on its hashed set's drives; a GET of all 1,024 is
+   other 192 and 64 overwrites of pool-0 keys land in pool 1; every object's
+   xl.meta lies only on its hashed set's drives; a GET of all 768 is
    byte-exact (an overwritten key reads its new bytes); the listing of both
    pools is exact without a delimiter (the delimiter listing and the
    version listing are printed, not held: the reference's multi-pool merges
    can skip keys and end a version listing early); delete_objects removes
-   256 keys
+   192 keys
    from the listing; with the part files and xl.meta of 4 drives of pool
    0's set 1 removed (2 of them for a 14+2 object), a GET of every object
    of that set is byte-exact and heal_object rebuilds each, byte-identical;
@@ -273,8 +274,44 @@ Phases, each of which raises on failure (the script then exits non-zero):
    The kernels ran in the node processes: the kernels line carries each
    node's codec records by step (codec_records_by_node).
 
+11. Pool lifecycle, the scanner and tiering (object/poolmgr.py,
+   control/rebalance.py, scanner.py, usage.py, lifecycle.py, tiering.py):
+   a port Node in this process over one 16-drive pool (12+4, RRS 14+2), no
+   codec= (its build installs the batching codec on the process's probe
+   verdict: phase 8a's probe child in the whole script, one of its own
+   when the phase runs alone),
+   served over HTTP; every request is signed S3 or admin from phase 6's
+   client process (16 threads). Each step zeroes the kernel counts and the
+   stage ledger before it and prints its wall time, objects/s, codec
+   records (encode, verify and reconstruct batches) and both kernels'
+   launches after it; no step may reach the host codec.
+   - 11a: 128 objects of phase 5's law (tenant-XX/... names) PUT into pool
+     0; POST /pools/attach adds pool 1 (16 drives): both active in
+     /pools/status, and a fresh PoolManager loads the persisted config.
+   - 11b: POST /pools/decommission of pool 0 until /pools/status says
+     decommissioned (path pool_decommission): every object GETs
+     byte-exact, no xl.meta of the bucket is left on pool 0, every object's
+     xl.meta is on pool 1's 16 drives, and the move made encode and verify
+     batches.
+   - 11c: an empty pool 2 attached, POST /pools/rebalance until it stops
+     (path pool_rebalance): the active pools' data-minus-capacity shares
+     within the engine's threshold, every moved object GETs byte-exact,
+     none is on two pools.
+   - 11d: a lifecycle PUT through S3 (one tenant prefix expires by a past Date,
+     another, the one with the most objects past the inline limit,
+     transitions at Days 0 to an FS tier added by POST /tiers);
+     8 STANDARD objects removed from 4 drives of pool 1; one scan_cycle
+     with heal_sample 1 (path scanner_heal): /datausage equals the walked
+     objects, the expired ones answer 404, the transitioned ones hold no
+     part files and GET byte-exact through the tier, inline ones stay, and
+     the 8 are whole again on all 16 drives, each part file byte-exact.
+   - 11e: POST ?restore of 4 transitioned objects (path tier_restore)
+     writes copies that GET byte-exact; a second cycle with the restores
+     expired removes the copies, and /datausage then counts the live
+     objects.
+
 The line before the last is a JSON object describing each kernel, with its
-launches by path (phase 7's and phase 8a's included); the last
+launches by path (phases 7, 8a and 11 included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 
@@ -1269,7 +1306,7 @@ def _shape_summary(counts: dict) -> dict:
     return {"hh256": dict(sorted(hh.items())), "rs_gf_apply": dict(sorted(rs.items()))}
 
 
-def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 1024, threads: int = 16,
+def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 768, threads: int = 16,
                 max_size: int = 4 * MiB, seed: int = 5, rates: dict | None = None) -> tuple[dict, SimpleNamespace]:
     """A 48-drive deployment through ServerPools: see the module docstring.
     Returns the paths' counts and the deployment as it stands after the
@@ -2280,6 +2317,19 @@ def _debris(root: str) -> list[str]:
     return out
 
 
+def _lasting_debris(dirs: list, settle_s: float = 2.0) -> list[str]:
+    """The stage debris of drives that live servers use: what _debris finds
+    now and again settle_s later. A live process's atomic write (a server's
+    scanner rewrites its usage and tier documents once a cycle) replaces its
+    staging file within milliseconds, so it shows in one listing at most;
+    what a dead process left stays in both."""
+    first = {p for d in dirs for p in _debris(d)}
+    if not first:
+        return []
+    time.sleep(settle_s)
+    return sorted(first & {p for d in dirs for p in _debris(d)})
+
+
 def phase_crash(root: str, codec, tally: Tally, device: str = "cuda", crash_mib: int = 4) -> dict:
     """7d: four spawned processes die at crash points; the restart scan
     recovers their drives (see the module docstring)."""
@@ -2858,7 +2908,7 @@ def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_obj
             client.call("get", ["cli/victim"], 1)
             victim = "whole"
         res = client.call("get", names + ["cli/big"], threads)
-        debris = [p for d in drive_dirs for p in _debris(d)]
+        debris = _lasting_debris(drive_dirs)
         rc, stop_s = srv.stop()
         if debris or rc != 0:
             raise AssertionError(f"8b recovery boot: rc {rc}, debris {debris[:8]}")
@@ -3161,7 +3211,7 @@ def phase_prefork(smi: str, root: str, device: str = "cuda", workers: tuple = (1
                     raise AssertionError(f"9b: the workers' probe verdicts {probes}")
                 if killed:
                     # The boot after 9c: its recovery scans ran before online.
-                    debris = [p for d in drive_dirs for p in _debris(d)]
+                    debris = _lasting_debris(drive_dirs)
                     if debris:
                         raise AssertionError(f"9c: debris after the next boot's recovery scan: {debris[:8]}")
                     log(f"9c the next boot ({n_workers} workers) is online with no stage debris on the 48 drives")
@@ -3519,7 +3569,7 @@ def phase_cluster(smi: str, root: str, device: str = "cuda", n_objects: int = 12
         for k in new.names:
             host_set.put_object("bench", k, bytes(new.data[k]))
             same_as_host(k, dirs[3], "10e heal")
-        debris = [p for d in flat for p in _debris(d)]
+        debris = _lasting_debris(flat)
         if debris:
             raise AssertionError(f"10e: debris on the drives: {debris[:8]}")
         if client.call("fetch", "/bench/cl/rrs-during-loss", 3)[0] != 404:
@@ -3547,6 +3597,323 @@ def phase_cluster(smi: str, root: str, device: str = "cuda", n_objects: int = 12
     log(f"10f SIGTERM to the 4 nodes: rc {rcs}")
     shutil.rmtree(base, ignore_errors=True)
     return records
+
+
+LC_POOLS = 3  # pool 0 at boot; pools 1 and 2 attached through /pools/attach; 16 drives each
+LC_TIER = "COLDTIER"
+LC_DAMAGE_DRIVES = (2, 7, 9, 14)  # 11d: the drives of one set whose copies of the damaged objects are removed
+LC_RESTORE_DAYS = 1
+
+
+def _lifecycle_xml(expire: str, transition: str) -> str:
+    """Objects under one tenant prefix expire (a Date in the past), those
+    under another transition to the tier at once (Days 0)."""
+    return ("<LifecycleConfiguration>"
+            f"<Rule><ID>expire</ID><Status>Enabled</Status><Filter><Prefix>{expire}</Prefix></Filter>"
+            "<Expiration><Date>2020-01-01T00:00:00Z</Date></Expiration></Rule>"
+            f"<Rule><ID>cold</ID><Status>Enabled</Status><Filter><Prefix>{transition}</Prefix></Filter>"
+            f"<Transition><Days>0</Days><StorageClass>{LC_TIER}</StorageClass></Transition></Rule>"
+            "</LifecycleConfiguration>")
+
+
+def _codec_ledger() -> dict:
+    """The codec records of this process's stage ledger since its last reset."""
+    from minio_tpu_torch.control.perf import GLOBAL_PERF, summarize
+
+    stages = summarize(GLOBAL_PERF.ledger.snapshot()).get("codec", {})
+    return {k: stages[k]["count"] for k in CODEC_STAGES if k in stages}
+
+
+def _pools_holding(pool_dirs: list, name: str) -> dict:
+    """{pool: number of its drives holding name's xl.meta}."""
+    out = {}
+    for p, dirs in enumerate(pool_dirs):
+        n = sum(os.path.exists(os.path.join(d, "bench", name, "xl.meta")) for d in dirs)
+        if n:
+            out[p] = n
+    return out
+
+
+def _xl_metas(drive_dir: str) -> list:
+    return [os.path.join(dp, f) for dp, _, files in os.walk(os.path.join(drive_dir, "bench")) for f in files
+            if f == "xl.meta"]
+
+
+def phase_lifecycle(smi: str, root: str, tally: Tally, device: str = "cuda", n_objects: int = 96,
+                    max_size: int = 4 * MiB, threads: int = HTTP_THREADS, n_damaged: int = 8, n_restore: int = 4,
+                    seed: int = 110) -> dict:
+    """Phase 11: pool lifecycle, the scanner and tiering through a port Node
+    in this process (no codec=: its build installs the batching codec on
+    the process's probe verdict, which runtime.probe_device caches: phase
+    8a's in the whole script), served over HTTP; all traffic is signed S3
+    and admin.
+    11a PUTs n_objects of phase 5's law (96; 128 before the cut that kept
+    the phase near its minute) into pool 0 (16 drives) and attaches
+    pool 1; 11b decommissions pool 0 into it; 11c attaches an empty pool 2
+    and rebalances; 11d sets a lifecycle (one tenant expires, another
+    transitions to an FS tier), removes n_damaged objects from 4 drives of
+    one set and runs one scanner cycle that deep-checks every object (for
+    this phase heal_sample is 1 and the cycle's DynamicSleeper is off: the
+    throttle sleeps 10x each object's work, up to 1 s an object);
+    11e restores n_restore transitioned objects and expires the copies in a
+    second cycle. Returns the kernel counts of its four paths."""
+    from minio_tpu_torch import cli, runtime
+    from minio_tpu_torch.control import tiering as tiering_mod
+    from minio_tpu_torch.control.perf import GLOBAL_PERF
+    from minio_tpu_torch.dist.node import Node
+    from minio_tpu_torch.object.erasure import META_BUCKET
+    from minio_tpu_torch.object.poolmgr import CONFIG_FILE, PoolManager, _read_sys
+    from minio_tpu_torch.utils import errors
+
+    t_phase = time.perf_counter()
+    paths: dict = {}
+    base = os.path.join(root, "lifecycle")
+    pool_dirs = [[os.path.join(base, f"pool{p}", _drive_name(i)) for i in range(DRIVES)] for p in range(LC_POOLS)]
+    tier_dir = os.path.join(base, "tier")
+    node = Node(pool_dirs[0], root_user=HTTP_CREDS[0], root_password=HTTP_CREDS[1], device=device)
+    app = node.make_app()
+    stop = threading.Event()
+    port = _free_port()
+    thread, errs = cli._run_app_until(app, "127.0.0.1", port, stop)
+    if errs:
+        raise AssertionError(f"11: the app did not start: {errs}")
+    client = None
+    try:
+        t = time.perf_counter()
+        node.build()
+        codec = node.codec
+        if type(codec).__name__ != "BatchingDeviceCodec" or codec.device.type != device:
+            raise AssertionError(f"11: the node serves {type(codec).__name__} on {getattr(codec, 'device', '?')}")
+        log(f"11 node boot (the process's probe verdict, format, build) in {time.perf_counter() - t:.2f} s: "
+            f"{type(codec).__name__} on {codec.device}")
+        client = HttpClient(f"http://127.0.0.1:{port}")
+
+        def admin(method: str, path: str, doc=None) -> dict:
+            st, out = client.call("admin", method, f"{ADMIN_PREFIX}{path}", (), doc)
+            if st != 200:
+                raise AssertionError(f"11 admin {method} {path}: {st} {out}")
+            return out
+
+        def until(pred, what: str, timeout: float = 600.0) -> None:
+            # /pools/status walks every pool: poll it 4 times a second, not 20.
+            t0 = time.perf_counter()
+            while not pred():
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"11: timed out after {timeout:.0f} s waiting for {what}")
+                time.sleep(0.25)
+
+        def step(path: str | None, label: str, fn, n: int, need=("rs_gf_apply", "hh256")):
+            """Run one step with every count zeroed just before it; print its
+            wall time, objects/s, codec records and kernel launches."""
+            tally.reset()
+            GLOBAL_PERF.ledger.reset()
+            t0 = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t0
+            counts = tally.read(path or label, need)
+            _no_host_fallback(codec, path or label)
+            recs = _codec_ledger()
+            if path is not None:
+                paths[path] = counts
+            log(f"11 {label}: {wall:.2f} s, {n} objects, {n / wall:.1f} objects/s; codec records "
+                f"{json.dumps(recs)}; launches {json.dumps(counts['launches'])} [{smi}]")
+            return res, recs
+
+        st, _, _ = client.call("request", "PUT", "/bench")
+        if st != 200:
+            raise AssertionError(f"11a: make bucket {st}")
+        n = client.call("register", seed, n_objects, max_size, "lc")
+        traffic = Traffic(seed, n, max_size, "lc")
+        names = traffic.names
+        sizes = {k: len(traffic.data[k]) for k in names}
+        rrs = {k: {"x-amz-storage-class": "REDUCED_REDUNDANCY"} for k in names if traffic.storage_class[k]}
+        del traffic
+
+        # 11a PUT, then attach pool 1.
+        step(None, f"11a PUT into pool 0 from {threads} threads ({sum(sizes.values()) / MiB:.1f} MiB, "
+                   f"{len(rrs)} REDUCED_REDUNDANCY)", lambda: client.call("put", names, rrs, threads), n)
+        t = time.perf_counter()
+        attached = admin("POST", "/pools/attach", {"endpoints": pool_dirs[1]})
+        attach_s = time.perf_counter() - t
+        status = admin("GET", "/pools/status")
+        status_s = time.perf_counter() - t - attach_s
+        if attached != {"pool": 1, "status": "active"} or [p["status"] for p in status["pools"]] != ["active"] * 2:
+            raise AssertionError(f"11a: attach {attached}, /pools/status {[p['status'] for p in status['pools']]}")
+        doc = json.loads(_read_sys(node.pools, CONFIG_FILE))
+        fresh = PoolManager(node.pools)
+        if not fresh.load_config() or fresh.epoch != node.poolmgr.epoch or \
+                [p["endpoints"] for p in doc["pools"]] != [None, pool_dirs[1]]:
+            raise AssertionError(f"11a: a fresh PoolManager over the same drives read epoch {fresh.epoch}, "
+                                 f"want {node.poolmgr.epoch}; the persisted config {doc}")
+        log(f"11a POST /pools/attach of pool 1 ({DRIVES} drives) in {attach_s:.2f} s, GET /pools/status in "
+            f"{status_s:.2f} s: both pools active; the persisted pool config (epoch {doc['epoch']}) loads into a "
+            f"fresh PoolManager")
+
+        # 11b decommission pool 0 into pool 1.
+        def decommission():
+            admin("POST", "/pools/decommission", {"pool": 0})
+            until(lambda: admin("GET", "/pools/status")["pools"][0]["status"] == "decommissioned",
+                  "pool 0 to be decommissioned")
+            return admin("GET", "/pools/status")["pools"][0]["drain"]
+
+        drain, recs = step("pool_decommission", "11b decommission of pool 0", decommission, n)
+        if drain["objects_moved"] < n or drain["objects_failed"] or drain["failed"]:
+            raise AssertionError(f"11b: drain {drain}")
+        if not (recs.get("encode-batch", 0) + recs.get("encode-batch-small", 0)) or not recs.get("verify-batch"):
+            raise AssertionError(f"11b: the move made no encode or no verify batch: {recs}")
+        left = [p for d in pool_dirs[0] for p in _xl_metas(d)]
+        if left:
+            raise AssertionError(f"11b: {len(left)} xl.meta of bucket bench left on pool 0, e.g. {left[:3]}")
+        where = {k: _pools_holding(pool_dirs, k) for k in names}
+        if any(w != {1: DRIVES} for w in where.values()):
+            raise AssertionError(f"11b: objects not on pool 1's 16 drives: "
+                                 f"{[(k, w) for k, w in where.items() if w != {1: DRIVES}][:4]}")
+        t = time.perf_counter()
+        client.call("get", names, threads)
+        log(f"11b all {n} objects GET byte-exact after the drain ({n / (time.perf_counter() - t):.1f} objects/s); "
+            f"no xl.meta of the bucket on pool 0, every object's xl.meta on the 16 drives of pool 1; drain {drain}")
+
+        # 11c attach an empty pool 2 and rebalance.
+        attached = admin("POST", "/pools/attach", {"endpoints": pool_dirs[2]})
+        if attached != {"pool": 2, "status": "active"}:
+            raise AssertionError(f"11c: attach {attached}")
+
+        def rebalance():
+            admin("POST", "/pools/rebalance", {"start": True})
+            until(lambda: not admin("GET", "/pools/status")["rebalance"]["running"], "the rebalance to stop")
+            return admin("GET", "/pools/status")["rebalance"]
+
+        reb, _ = step("pool_rebalance", "11c rebalance onto the empty pool 2", rebalance, n)
+        skews = node.poolmgr.rebalancer._skews()
+        threshold = float(os.environ.get("MTPU_REBALANCE_SKEW", "0.10"))
+        where = {k: _pools_holding(pool_dirs, k) for k in names}
+        doubled = [k for k, w in where.items() if len(w) != 1 or next(iter(w.values())) != DRIVES]
+        moved = [k for k, w in where.items() if 2 in w]
+        counts = collections.Counter(p for w in where.values() for p in w)
+        if max(skews.values()) > threshold or doubled or not moved or reb["objects_moved"] != len(moved):
+            raise AssertionError(f"11c: skews {skews} (threshold {threshold}), objects on two pools or short of 16 "
+                                 f"drives {doubled[:4]}, moved {len(moved)}, status {reb}")
+        client.call("get", moved, threads)
+        log(f"11c rebalance: {reb['objects_moved']} objects ({reb['bytes_moved'] / MiB:.1f} MiB) in {reb['rounds']} "
+            f"rounds; objects by pool {dict(sorted(counts.items()))}; data-minus-capacity share by pool "
+            f"{ {p: round(s, 4) for p, s in skews.items()} } within {threshold}; every moved object GETs "
+            f"byte-exact, none is on two pools")
+
+        # 11d lifecycle, an FS tier, damage, one scanner cycle. The tenant
+        # that transitions is the one with the most objects past the inline
+        # limit (inline ones are not transitioned); the next one expires.
+        big = collections.Counter(k.split("/")[0] for k in names if sizes[k] >= 128 << 10)
+        tenants = sorted({k.split("/")[0] for k in names}, key=lambda t: (-big[t], t))
+        lc_transition, lc_expire = tenants[0] + "/", tenants[1] + "/"
+        st, _, body = client.call("request", "PUT", "/bench", [("lifecycle", "")], None,
+                                  _lifecycle_xml(lc_expire, lc_transition).encode())
+        if st != 200:
+            raise AssertionError(f"11d PUT ?lifecycle: {st} {body[:300]!r}")
+        admin("POST", "/tiers", {"name": LC_TIER, "type": "fs", "dir": tier_dir})
+        tiers = admin("GET", "/tiers")
+        if [t["name"] for t in tiers] != [LC_TIER]:
+            raise AssertionError(f"11d GET /tiers: {tiers}")
+        expire = [k for k in names if k.startswith(lc_expire)]
+        to_tier = [k for k in names if k.startswith(lc_transition)]
+        inline = {k for k in to_tier if node.pools.get_object_info("bench", k).inline}
+        tiered = [k for k in to_tier if k not in inline]
+        candidates = [k for k in names if k not in expire and k not in to_tier and k not in rrs
+                      and sizes[k] >= 128 << 10 and 1 in where[k]]
+        damaged = candidates[:n_damaged]
+        if len(damaged) < n_damaged or not expire or len(tiered) < n_restore:
+            raise AssertionError(f"11d: {len(damaged)} objects to damage, {len(expire)} to expire, "
+                                 f"{len(tiered)} to transition")
+        kept = {}
+        for k in damaged:
+            for i in LC_DAMAGE_DRIVES:
+                top = os.path.join(pool_dirs[1][i], "bench", k)
+                kept[(k, i)] = _object_files(SimpleNamespace(root=pool_dirs[1][i]), k)
+                shutil.rmtree(top)
+        healed0 = node.scanner.objects_healed
+        node.scanner.heal_sample = 1
+        node.scanner._sleeper.factor = 0.0  # the throttle's idle time is not the path's work
+
+        _, recs = step("scanner_heal", f"11d one scanner cycle over {n} objects (deep check of each, heal_sample 1)",
+                       node.scanner.scan_cycle, n)
+        usage = admin("GET", "/datausage")
+        truth = {"objectsCount": n, "size": sum(sizes.values()), "versionsCount": n}
+        if usage["bucketsUsage"].get("bench") != truth or usage["objectsCount"] != n:
+            raise AssertionError(f"11d /datausage {usage}, want bench {truth} (the objects the cycle walked)")
+        gone = [client.call("fetch", f"/bench/{k}", 0)[0] for k in expire]
+        if gone != [404] * len(expire):
+            raise AssertionError(f"11d: the expired objects answer {gone}")
+        for k in to_tier:
+            oi = node.pools.get_object_info("bench", k)
+            on_tier = tiering_mod.is_transitioned(oi.internal)
+            parts = [f for d in pool_dirs[1] + pool_dirs[2] for f in _object_files(SimpleNamespace(root=d), k)
+                     if f.startswith("part.")]
+            if on_tier != (k not in inline) or (on_tier and parts):
+                raise AssertionError(f"11d {k}: transitioned {on_tier} (inline {k in inline}), part files {parts[:3]}")
+        client.call("get", tiered, threads)
+        for (k, i), files in kept.items():
+            now = _object_files(SimpleNamespace(root=pool_dirs[1][i]), k)
+            parts = {f: b for f, b in files.items() if f.startswith("part.")}
+            if "xl.meta" not in now or {f: b for f, b in now.items() if f.startswith("part.")} != parts:
+                raise AssertionError(f"11d: {k} on drive {i} was not healed byte-exact")
+        healed = node.scanner.objects_healed - healed0
+        if healed != n_damaged or not recs.get("reconstruct-batch"):
+            raise AssertionError(f"11d: the scanner healed {healed} objects, want {n_damaged}; records {recs}")
+        log(f"11d lifecycle: {lc_expire} expires, {lc_transition} transitions; /datausage bench "
+            f"{usage['bucketsUsage']['bench']} equals the walked objects; {len(expire)} expired objects answer 404; {len(tiered)} transitioned to the FS tier hold no part files and GET "
+            f"byte-exact through it, {len(inline)} inline ones stay; the {n_damaged} damaged objects are whole on "
+            f"all 16 drives, {sum(len(v) for v in kept.values())} files byte-exact; transitions "
+            f"{node.scanner.objects_transitioned}, expiries {node.scanner.objects_expired}, heals {healed}")
+
+        # 11e restore, GET through the copy, expire the copy in a second cycle.
+        restore = tiered[:n_restore]
+        copies = [f"restored/bench/{k}@null" for k in restore]
+
+        def do_restore():
+            for k in restore:
+                st, _, body = client.call("request", "POST", f"/bench/{k}", [("restore", "")], None,
+                                          f"<RestoreRequest><Days>{LC_RESTORE_DAYS}</Days></RestoreRequest>".encode())
+                if st != 202:
+                    raise AssertionError(f"11e POST ?restore {k}: {st} {body[:300]!r}")
+
+        step("tier_restore", f"11e POST ?restore of {len(restore)} transitioned objects", do_restore, len(restore))
+        for c in copies:
+            node.pools.pools[0].get_object_info(META_BUCKET, c)
+        client.call("get", restore, threads)
+        past = time.strftime("%a, %d %b %Y %H:%M:%S GMT", time.gmtime(time.time() - 86400))
+        for k in restore:
+            node.pools.put_object_metadata("bench", k, "", updates={
+                tiering_mod.META_RESTORE: f'ongoing-request="false", expiry-date="{past}"'})
+        node.scanner.heal_sample = 1 << 30
+        t = time.perf_counter()
+        node.scanner.scan_cycle()
+        cycle2 = time.perf_counter() - t
+        left = []
+        for c in copies:
+            try:
+                node.pools.pools[0].get_object_info(META_BUCKET, c)
+                left.append(c)
+            except errors.ObjectError:
+                pass
+        usage = admin("GET", "/datausage")["bucketsUsage"].get("bench")
+        live = [k for k in names if k not in expire]
+        want = {"objectsCount": len(live), "size": sum(sizes[k] for k in live), "versionsCount": len(live)}
+        if left or usage != want:
+            raise AssertionError(f"11e: restored copies left {left}; /datausage bench {usage}, want {want}")
+        client.call("get", restore, threads)
+        log(f"11e the {len(restore)} restored copies GET byte-exact; a second cycle ({cycle2:.2f} s) with the "
+            f"restores expired removed every copy and the objects still GET byte-exact through the tier; "
+            f"/datausage bench {usage}")
+    finally:
+        if client is not None:
+            client.close()
+        stop.set()
+        thread.join(10)
+        node.close()
+        Node.close_all()
+        runtime.shutdown_data_plane()
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def main() -> int:
@@ -3597,6 +3964,8 @@ def main() -> int:
         cluster_records = phase_cluster(smi, root)
         log(f"phase 10 took {time.perf_counter() - t:.1f} s")
         log_phase_end("phase 10")
+        paths.update(phase_lifecycle(smi, root, tally))
+        log_phase_end("phase 11")
     finally:
         tally.uninstall()
         codec.close()

@@ -5,8 +5,10 @@ Role of the reference's admin handlers (cmd/admin-handlers*.go, mounted at
 authorized against the admin:* action namespace. The port serves: /info,
 /service, /config, the users/groups/policies/service-accounts routes (IAM
 only), /chaos, /heal, /perf, /perf/slow, the profiling routes, /toplocks,
-/force-unlock and /inspect; the fan-outs reach every peer through the node's
-NotificationSys. Every other route of the JAX package's admin API is
+/force-unlock, /inspect, /datausage, /quota, the pool lifecycle routes
+(/pools/status, /pools/attach, /pools/decommission, /pools/rebalance) and
+the remote tier routes (/tiers*); the fan-outs reach every peer through the
+node's NotificationSys. Every other route of the JAX package's admin API is
 registered and answers 501 NotImplemented naming the module it waits for
 (ROADMAP.md, Queue A item 8).
 """
@@ -38,18 +40,11 @@ NOT_PORTED_ROUTES: tuple[tuple[str, str, str], ...] = (
     ("POST", "/site-replication/peer/iam", "control/site_replication.py"),
     ("POST", "/site-replication/peer/install-replication", "control/site_replication.py"),
     ("GET", "/healthinfo", "control/health.py"),
-    ("GET", "/datausage", "control/scanner.py"),
-    ("GET", "/quota", "control/scanner.py"),
-    ("PUT", "/quota", "control/scanner.py"),
     ("GET", "/bandwidth", "control/bandwidth.py"),
     ("GET", "/kms/status", "control/kms.py (the admin KMS routes)"),
     ("POST", "/update", "control/update.py"),
     ("GET", "/update", "control/update.py"),
     ("GET", "/kms/key/status", "control/kms.py (the admin KMS routes)"),
-    ("GET", "/pools/status", "object/poolmgr.py"),
-    ("POST", "/pools/attach", "object/poolmgr.py"),
-    ("POST", "/pools/decommission", "object/poolmgr.py"),
-    ("POST", "/pools/rebalance", "object/poolmgr.py"),
     ("GET", "/metrics", "control/metrics.py"),
     ("POST", "/speedtest", "control/selftest.py"),
     ("POST", "/speedtest/object", "control/selftest.py"),
@@ -68,11 +63,6 @@ NOT_PORTED_ROUTES: tuple[tuple[str, str, str], ...] = (
     ("DELETE", "/replication/target", "control/replication.py"),
     ("GET", "/replication/status", "control/replication.py"),
     ("POST", "/replication/resync", "control/replication.py"),
-    ("POST", "/tiers", "control/tiering.py (TierConfigMgr)"),
-    ("GET", "/tiers", "control/tiering.py (TierConfigMgr)"),
-    ("DELETE", "/tiers/{name}", "control/tiering.py (TierConfigMgr)"),
-    ("PUT", "/tiers/{name}/creds", "control/tiering.py (TierConfigMgr)"),
-    ("GET", "/tiers/stats", "control/tiering.py (TierConfigMgr)"),
 )
 
 
@@ -90,6 +80,9 @@ class AdminContext:
     metrics: object | None = None  # MetricsSys (memcache stats in /perf)
     notification: object | None = None  # peer fan-out
     site_repl: object | None = None  # SiteReplicationSys (site-replication.go)
+    tiering: object | None = None  # TierConfigMgr (tier.go)
+    bucket_meta: object | None = None  # BucketMetadataSys (quota config)
+    poolmgr: object | None = None  # PoolManager (pool lifecycle admin)
 
 def make_admin_app(ctx: AdminContext) -> web.Application:
     app = web.Application()
@@ -169,6 +162,126 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
         if ctx.notification is not None:
             info["servers"] = ctx.notification.server_info_all()
         return info
+
+    def h_datausage(request, body):
+        if ctx.scanner is None:
+            return {}
+        return ctx.scanner.usage.summary()
+
+    # -- bucket quota (Put/GetBucketQuotaConfigHandler,
+    # cmd/admin-bucket-handlers.go:43,83) ------------------------------------
+
+    def h_get_quota(request, body):
+        bucket = request.rel_url.query.get("bucket", "")
+        if not bucket or ctx.bucket_meta is None:
+            raise S3Error("InvalidRequest")
+        ctx.layer.get_bucket_info(bucket)
+        q = ctx.bucket_meta.get(bucket).quota
+        return {"quota": q, "quotatype": "hard" if q > 0 else ""}
+
+    def h_set_quota(request, body):
+        bucket = request.rel_url.query.get("bucket", "")
+        if not bucket or ctx.bucket_meta is None:
+            raise S3Error("InvalidRequest")
+        ctx.layer.get_bucket_info(bucket)
+        try:
+            cfg = json.loads(body) if body else {}
+            quota = int(cfg.get("quota", 0))
+        except (ValueError, TypeError, AttributeError):  # non-object JSON too
+            raise S3Error("InvalidRequest", "invalid quota config")
+        if quota < 0 or cfg.get("quotatype", "hard") not in ("", "hard"):
+            # FIFO quota is deprecated in the reference too; hard-only.
+            raise S3Error("InvalidRequest", "only hard quotas are supported")
+        # bucket_meta.update's on_change hook broadcasts the peer
+        # invalidation (quota enforcement reads cached meta on every node).
+        ctx.bucket_meta.update(bucket, quota=quota)
+        return {"ok": True}
+
+    # -- pool lifecycle (object/poolmgr.py; the reference's
+    # admin pools attach / decommission / rebalance verbs) -------------------
+
+    def _poolmgr():
+        pm = getattr(ctx, "poolmgr", None)
+        if pm is None:
+            raise S3Error("NotImplemented", "pool lifecycle needs a running node")
+        return pm
+
+    def h_pools_status(request, body):
+        return _poolmgr().status()
+
+    def h_pools_attach(request, body):
+        """POST {"endpoints": [...]} -- runtime attach-pool expansion."""
+        doc = json.loads(body) if body else {}
+        eps = doc.get("endpoints") or []
+        if not eps or not isinstance(eps, list):
+            raise S3Error("InvalidArgument", "endpoints list required")
+        idx = _poolmgr().attach_endpoints([str(e) for e in eps])
+        return {"pool": idx, "status": "active"}
+
+    def h_pools_decommission(request, body):
+        """POST {"pool": i, "wait": false} -- start (or resume) a drain."""
+        doc = json.loads(body) if body else {}
+        if "pool" not in doc:
+            raise S3Error("InvalidArgument", "pool index required")
+        tracker = _poolmgr().start_decommission(
+            int(doc["pool"]), wait=bool(doc.get("wait", False))
+        )
+        from dataclasses import asdict as _asdict
+
+        return {"drain": _asdict(tracker)}
+
+    def h_pools_rebalance(request, body):
+        """POST {"start": true, "threshold": 0.1} | {"start": false}."""
+        doc = json.loads(body) if body else {}
+        pm = _poolmgr()
+        if doc.get("start", True):
+            thr = doc.get("threshold")
+            return pm.start_rebalance(None if thr is None else float(thr))
+        return pm.stop_rebalance()
+
+    # -- remote tiers (mc admin tier add/ls/rm; cmd/tier.go surface) ---------
+
+    def h_tier_add(request, body):
+        if ctx.tiering is None:
+            raise S3Error("NotImplemented")
+        from ..control.tiering import TierConfig
+
+        ctx.tiering.add(TierConfig.from_dict(json.loads(body)))
+        return {}
+
+    def h_tier_list(request, body):
+        if ctx.tiering is None:
+            raise S3Error("NotImplemented")
+        out = []
+        for t in ctx.tiering.list():
+            d = t.to_dict()
+            d.pop("secret_key", None)
+            out.append(d)
+        return out
+
+    def h_tier_remove(request, body):
+        if ctx.tiering is None:
+            raise S3Error("NotImplemented")
+        ctx.tiering.remove(request.match_info["name"])
+        return {}
+
+    def h_tier_edit(request, body):
+        if ctx.tiering is None:
+            raise S3Error("NotImplemented")
+        doc = json.loads(body)
+        ctx.tiering.edit_creds(
+            request.match_info["name"], doc["accessKey"], doc["secretKey"]
+        )
+        return {}
+
+    def h_tier_stats(request, body):
+        if ctx.tiering is None:
+            raise S3Error("NotImplemented")
+        return {
+            "transitionedObjects": ctx.tiering.transitioned_objects,
+            "transitionedBytes": ctx.tiering.transitioned_bytes,
+            "journalBacklog": ctx.tiering.journal_backlog(),
+        }
 
     # -- inspect raw storage files (InspectDataHandler,
     # cmd/admin-handlers.go:2198): the same file from EVERY drive, zipped,
@@ -711,6 +824,18 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
     app.router.add_post("/profile/start", handler(h_profile_start))
     app.router.add_post("/profile/stop", handler(h_profile_stop))
     app.router.add_get("/profile", handler(h_profile))
+    app.router.add_get("/datausage", handler(h_datausage))
+    app.router.add_get("/quota", handler(h_get_quota))
+    app.router.add_put("/quota", handler(h_set_quota))
+    app.router.add_get("/pools/status", handler(h_pools_status))
+    app.router.add_post("/pools/attach", handler(h_pools_attach))
+    app.router.add_post("/pools/decommission", handler(h_pools_decommission))
+    app.router.add_post("/pools/rebalance", handler(h_pools_rebalance))
+    app.router.add_post("/tiers", handler(h_tier_add))
+    app.router.add_get("/tiers", handler(h_tier_list))
+    app.router.add_delete("/tiers/{name}", handler(h_tier_remove))
+    app.router.add_put("/tiers/{name}/creds", handler(h_tier_edit))
+    app.router.add_get("/tiers/stats", handler(h_tier_stats))
     for method, path, module in NOT_PORTED_ROUTES:
         app.router.add_route(method, path, handler(not_ported(module)))
     return app

@@ -311,8 +311,13 @@ def serve(argv: list[str]) -> int:
             admin=f"http://{host}:{port}/mtpu/admin/v1",
             **who,
         )
+        # The background scanner runs for as long as the node serves. Under
+        # MTPU_WORKERS every worker's node has one; the never-released dsync
+        # leader lock lets one of them scan at a time.
+        node.scanner.start()
     while not stop_evt.is_set():
         time.sleep(0.2)
+    node.scanner.stop()
     node.close()
     shutdown_data_plane(node.codec)
     t.join(5)

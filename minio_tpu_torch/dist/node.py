@@ -11,8 +11,9 @@ and this node is the leader = owner of the first endpoint), assembles the
 erasure pools and the control plane, and serves S3 + admin + storage, lock
 and peer REST on one port.
 
-Left for later, each at its site below: the pool manager, disk/memory
-caches, metrics, event targets, the scanner, TierConfigMgr, replication,
+The pool manager (attach, decommission, rebalance), the data scanner and
+TierConfigMgr are wired as the JAX node wires them. Left for later, each at
+its site below: disk/memory caches, metrics, event targets, replication,
 site replication, the flight recorder, the console and the etcd IAM store
 (ROADMAP.md, Queue A item 8).
 """
@@ -97,7 +98,10 @@ class Node:
         self.region = region
         self.codec = codec
         self.device = device
-        self._own_codec = None  # the codec build() installed, closed by close()
+        self._own_codec = None  # the codec build() built, closed by close()
+        # The codec build() made the process default (its own or the
+        # caller's): close() clears the default while it is still this one.
+        self._installed_codec = None
 
         # Drive construction: local paths open directly, remote via REST.
         peer_urls: set[str] = set()
@@ -156,6 +160,11 @@ class Node:
         self.pools: ServerPools | None = None
         self.ns_lock: NamespaceLock | None = None
         self.notification: NotificationSys | None = None
+        self.poolmgr = None
+        self.scanner = None
+        self.tiering = None
+        self._quota_cache = None  # leader-persisted usage tree (non-leaders)
+        self._quota_cache_ts = 0.0
 
     # -- format consensus ----------------------------------------------------
 
@@ -259,6 +268,7 @@ class Node:
             layer_codec = None
         else:
             codec_mod.set_default_codec(self.codec)
+        self._installed_codec = self.codec
         # One ErasureSets per pool; pools after the first share the cluster
         # deployment id (erasure-server-pool.go newErasureServerPools role).
         pool_sets: list[ErasureSets] = []
@@ -302,9 +312,16 @@ class Node:
         self.notification = NotificationSys(
             [PeerClient(u, self.token) for u in self.peer_urls]
         )
-        # The pool manager (object/poolmgr.py: attach, decommission,
-        # rebalance, and the replay of the persisted pool config over the
-        # peers' poolsreload verb) waits for Queue A item 8.1.
+        # Pool lifecycle manager: owns attach/decommission/rebalance and the
+        # persisted pool-config epoch. load_config() here picks up pools that
+        # were attached at runtime before this process (re)started -- built
+        # BEFORE the subsystems below so they all see the full pool set.
+        from ..object.poolmgr import PoolManager
+
+        self.poolmgr = PoolManager(
+            self.pools, notification=self.notification, node=self
+        )
+        self.poolmgr.load_config()
 
         # Control plane assembly (newAllSubsystems role, server-main.go:451).
         from ..control.config import ConfigStore, ConfigSys
@@ -362,8 +379,11 @@ class Node:
         s3.bucket_meta.on_change = lambda b: self.notification.reload_bucket_meta_all(b)
         # s3.peer_notification (the cluster-wide listen and trace merge)
         # waits for the event notifier and api/streams.py (Queue A item
-        # 8.3). Metrics, event targets, scanner, tiering, replication and
-        # site replication wait for Queue A item 8.
+        # 8.3). Metrics, event targets, replication and site replication
+        # wait for Queue A item 8.
+        # Hard bucket quotas read the scanner's usage tree
+        # (enforceBucketQuota, cmd/bucket-quota.go:112).
+        s3.quota_usage = self._quota_usage
         self.healmgr = HealManager(self.pools)
         self.mrf = MRFQueue(self.pools)
         # Feed the MRF from every erasure set: a put that met quorum but
@@ -397,6 +417,22 @@ class Node:
         from ..control.healmgr import DiskHealMonitor
 
         self.disk_heal = DiskHealMonitor(self.pools)
+        from ..control.scanner import DataScanner
+        from ..control.tiering import TierConfigMgr
+
+        self.tiering = TierConfigMgr(store, kms=self.kms)
+        s3.tiering = self.tiering
+        # Scanner leadership via a never-released dsync lock (runDataScanner
+        # :99-111); only one node in the cluster scans at a time. The event
+        # notifier waits for Queue A item 8.3.
+        self.scanner = DataScanner(
+            self.pools,
+            bucket_meta=s3.bucket_meta,
+            notifier=None,
+            leader_lock=self.ns_lock.new(".minio_tpu.sys", "leader/data-scanner"),
+            store=store,
+            tiering=self.tiering,
+        )
         # Arm the always-on profiling plane (continuous stack sampler + GIL
         # probe; MTPU_PROFILE=0 vetoes). Process-wide singleton, stopped by
         # close_all().
@@ -405,24 +441,160 @@ class Node:
         GLOBAL_PROFILER.ensure_started()
         # Serve last: until here the S3 entry and the admin routes answer 503.
         self.s3 = s3
+        # Resume any drain the previous process left running (the leader
+        # drives drains, like format orchestration; MTPU_POOL_RESUME=0
+        # vetoes for surgical restarts).
+        if self.is_leader and os.environ.get("MTPU_POOL_RESUME", "1") != "0":
+            self.poolmgr.resume_pending()
         return self
+
+    def _quota_usage(self, bucket: str) -> int | None:
+        """Bucket usage bytes for quota enforcement, or None when unknown.
+
+        Only the scan leader populates its in-memory tree; every other node
+        reads the tree the leader persists (scanner/data-usage.json),
+        TTL-cached ~1s like the reference's bucketStorageCache
+        (cmd/bucket-quota.go:72-78). No tree anywhere -> None (enforcement
+        skipped until a first scan completes)."""
+        sc = self.scanner
+        if sc is not None and sc.usage.last_update:
+            return sc.usage.bucket_usage(bucket).size
+        now = time.monotonic()
+        if now - self._quota_cache_ts > 1.0:
+            self._quota_cache_ts = now
+            self._quota_cache = None
+            store = getattr(sc, "store", None)
+            if store is not None:
+                try:
+                    raw = store.get("scanner/data-usage.json")
+                    if raw:
+                        from ..control.usage import DataUsageCache
+
+                        self._quota_cache = DataUsageCache.from_bytes(raw)
+                except Exception as e:  # noqa: BLE001 - unreadable tree = unknown
+                    self.logger.log_once(
+                        f"usage tree unreadable, quota enforcement skipped: {e}",
+                        key="quota-usage-tree",
+                    )
+                    self._quota_cache = None
+        cache = self._quota_cache
+        if cache is None or not cache.last_update:
+            return None
+        return cache.bucket_usage(bucket).size
+
+    # -- pool expansion -------------------------------------------------------
+
+    def build_pool_from_endpoints(self, raw_endpoints: list[str]) -> ErasureSets:
+        """Construct (and register) the drive stacks + erasure sets for one
+        new pool at runtime. Formats the drives with the cluster deployment
+        id when ALL of them are unformatted (the attach orchestrator
+        formats regardless of boot leadership -- wait_for_format only
+        auto-inits for the leader); a pre-formatted foreign pool is
+        rejected. Called by attach_pool on the orchestrating node and by
+        PoolManager.load_config on peers replaying the persisted config."""
+        if self.pools is None:
+            raise errors.StorageError("node not built yet")
+        from ..chaos.disk import FaultyDisk
+        from ..control.pubsub import GLOBAL_TRACE
+        from ..storage.breaker import HealthGatedDrive
+        from ..storage.metered import MeteredDrive
+
+        eps = [Endpoint.parse(e) for e in raw_endpoints]
+        drives: list[StorageAPI] = []
+        for ep in eps:
+            if ep.is_local_path or ep.url == self.url:
+                d = MeteredDrive(
+                    HealthGatedDrive(FaultyDisk(LocalDrive(ep.path))),
+                    trace=GLOBAL_TRACE,
+                )
+                # Registering here makes the drive instantly peer-servable:
+                # make_storage_app resolves this dict at request time.
+                self.local_drives[ep.path] = d
+                drives.append(d)
+            else:
+                drives.append(RemoteDrive(ep.url, ep.path, self.token))
+        if len(drives) % self.set_drive_count:
+            raise ValueError(
+                f"attached pool: {len(drives)} drives not divisible into "
+                f"sets of {self.set_drive_count}"
+            )
+        dep_id = self.pools.pools[0].deployment_id
+        if not any(f is not None for f in self._read_formats(drives)):
+            n_sets = len(drives) // self.set_drive_count
+            fresh = fmt_mod.init_format(
+                n_sets, self.set_drive_count, deployment_id=dep_id
+            )
+            for d, f in zip(drives, fresh):
+                try:
+                    d.write_all(
+                        fmt_mod.SYS_DIR, fmt_mod.FORMAT_FILE, f.to_json().encode()
+                    )
+                except errors.DiskError:
+                    pass
+        quorum = self.wait_for_format(
+            timeout=10.0, drives=drives, deployment_id=dep_id
+        )
+        if quorum.deployment_id != dep_id:
+            raise errors.UnformattedDisk(
+                f"attached pool belongs to deployment {quorum.deployment_id}, "
+                f"cluster is {dep_id}"
+            )
+        # As build() gives its pools: the caller's codec, else the default.
+        layer_codec = None if self._own_codec is not None else self.codec
+        sets = ErasureSets.from_drives(
+            list(drives), quorum, parity=self.parity, codec=layer_codec,
+            pool_index=len(self.pools.pools), rrs_parity=self.rrs_parity,
+        )
+        self.pool_endpoints.append(eps)
+        self.endpoints.extend(eps)
+        self.pool_drives.append(drives)
+        self.drives.extend(drives)
+        return sets
+
+    def _wire_new_pool(self, sets: ErasureSets) -> None:
+        """Give a runtime-attached pool the same plumbing build() gives boot
+        pools: the namespace lock and the partial-write -> MRF feed."""
+        mrf = getattr(self, "mrf", None)
+        for s in sets.sets:
+            s.ns_lock = self.ns_lock
+            if mrf is not None:
+                s.on_partial = mrf.add
+
+    def attach_pool(self, raw_endpoints: list[str]) -> int:
+        """Runtime attach-pool expansion: build drives + sets, wire them,
+        then run the manager's two-phase (suspended -> fanout -> active ->
+        fanout) attach. Returns the new pool index."""
+        sets = self.build_pool_from_endpoints(list(raw_endpoints))
+        self._wire_new_pool(sets)
+        return self.poolmgr.attach(sets, endpoints=list(raw_endpoints))
+
+    def reload_pools(self) -> bool:
+        """Peer-RPC entry: re-read the persisted pool config (epoch-gated)."""
+        pm = getattr(self, "poolmgr", None)
+        if pm is None:
+            return False
+        return pm.load_config()
 
     # -- shutdown ------------------------------------------------------------
 
     def close(self) -> None:
         """Stop every background worker this node started, reverse build
-        order (consumers before their feeds), and close the codec build()
-        installed. Idempotent, and safe on a node that never completed
-        build() -- each subsystem is stopped only if it exists."""
-        for sub in ("disk_heal", "mrf", "healmgr"):
+        order (consumers before their feeds), clear the process default codec
+        while it is still the one build() installed, and close that codec if
+        build() built it (a caller's codec stays the caller's to close).
+        Idempotent, and safe on a node that never completed build() -- each
+        subsystem is stopped only if it exists."""
+        for sub in ("poolmgr", "scanner", "disk_heal", "mrf", "healmgr"):
             s = getattr(self, sub, None)
             if s is not None:
                 s.stop()
+        installed, self._installed_codec = self._installed_codec, None
+        if installed is not None:
+            with codec_mod._default_lock:
+                if codec_mod._default is installed:
+                    codec_mod._default = None
         own, self._own_codec = self._own_codec, None
         if own is not None:
-            with codec_mod._default_lock:
-                if codec_mod._default is own:
-                    codec_mod._default = None
             close = getattr(own, "close", None)
             if close is not None:
                 close()
@@ -472,10 +644,9 @@ class Node:
 class _LazyAdminContext:
     """Admin context resolving node components at request time, so the admin
     router can be mounted before build() completes (it 503s until ready).
-    The subsystems of later slices (scanner, metrics, site replication)
-    read None."""
+    The subsystems of later slices (metrics, site replication) read None."""
 
-    scanner = metrics = site_repl = None
+    metrics = site_repl = None
 
     def __init__(self, node: "Node"):
         self._node = node
@@ -511,6 +682,23 @@ class _LazyAdminContext:
     @property
     def notification(self):
         return self._node.notification
+
+    @property
+    def scanner(self):
+        return getattr(self._node, "scanner", None)
+
+    @property
+    def tiering(self):
+        return getattr(self._node, "tiering", None)
+
+    @property
+    def poolmgr(self):
+        return getattr(self._node, "poolmgr", None)
+
+    @property
+    def bucket_meta(self):
+        s3 = self._node.s3
+        return s3.bucket_meta if s3 is not None else None
 
 
 def _default_set_count(n: int) -> int:

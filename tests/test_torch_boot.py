@@ -285,6 +285,61 @@ def _script(c: Client, heal_seq: dict, log: dict, side: Side) -> None:
     log["inspect-missing"] = c.json("GET", f"{ADMIN}/inspect", query=[("volume", "bkt"), ("file", "nope")])
 
 
+# The admin routes this slice ported from the JAX package (pool lifecycle,
+# the scanner's usage and quota, remote tiers), in the order _ported_routes
+# calls them.
+PORTED_ROUTES = (
+    "GET /datausage", "GET /quota", "PUT /quota", "GET /pools/status", "POST /pools/attach",
+    "POST /pools/decommission", "POST /pools/rebalance", "POST /tiers", "GET /tiers",
+    "PUT /tiers/{name}/creds", "GET /tiers/stats", "DELETE /tiers/{name}",
+)
+ATTACHED = [f"p2d{i}" for i in range(SET_DRIVES)]
+
+
+def _ported_routes(c: Client, side: Side) -> dict:
+    """One call of each ported route, with the body the JAX handler takes."""
+    attach = [os.path.join(side.root, d) for d in ATTACHED]
+    calls = {
+        "GET /datausage": ("GET", "/datausage", b"", ()),
+        "GET /quota": ("GET", "/quota", b"", [("bucket", "bkt")]),
+        "PUT /quota": ("PUT", "/quota", {"quota": 1 << 30, "quotatype": "hard"}, [("bucket", "bkt")]),
+        "GET /pools/status": ("GET", "/pools/status", b"", ()),
+        "POST /pools/attach": ("POST", "/pools/attach", {"endpoints": attach}, ()),
+        "POST /pools/decommission": ("POST", "/pools/decommission", {"pool": 2, "wait": True}, ()),
+        "POST /pools/rebalance": ("POST", "/pools/rebalance", {"start": False}, ()),
+        "POST /tiers": ("POST", "/tiers", {"name": "COLD", "type": "fs", "dir": os.path.join(side.root, "tier")}, ()),
+        "GET /tiers": ("GET", "/tiers", b"", ()),
+        "PUT /tiers/{name}/creds": ("PUT", "/tiers/COLD/creds", {"accessKey": "tierak", "secretKey": "tiersk"}, ()),
+        "GET /tiers/stats": ("GET", "/tiers/stats", b"", ()),
+        "DELETE /tiers/{name}": ("DELETE", "/tiers/COLD", b"", ()),
+    }
+    out = {}
+    for route in PORTED_ROUTES:
+        method, path, body, query = calls[route]
+        out[route] = c.json(method, ADMIN + path, body, query)
+    out["GET /quota after"] = c.json("GET", f"{ADMIN}/quota", query=[("bucket", "bkt")])
+    out["GET /pools/status after"] = c.json("GET", f"{ADMIN}/pools/status")
+    # Leave the quota off: the restart's PUTs below are not about quotas.
+    c.json("PUT", f"{ADMIN}/quota", {"quota": 0}, [("bucket", "bkt")])
+    return out
+
+
+def json_kind(value, root: str = ""):
+    """A JSON value's shape: dict keys and list lengths kept, strings by their
+    hex shape with the tree's root removed, numbers by their type."""
+    if isinstance(value, dict):
+        return {k: json_kind(v, root) for k, v in value.items()}
+    if isinstance(value, list):
+        return [json_kind(v, root) for v in value]
+    if isinstance(value, bool) or value is None:
+        return value
+    if isinstance(value, (int, float)):
+        return type(value).__name__
+    if isinstance(value, str):
+        return shape(value, root)
+    return repr(type(value))
+
+
 RESTART_GETS = ("tiny", "small", "max")
 
 
@@ -335,6 +390,8 @@ def boot(tmp_path_factory):
         out.codec = sides["port"].node.codec
         for name, side in sides.items():
             _script(side.client, out.heal_seq, out.log[name], side)
+        out.ported = {name: _ported_routes(side.client, side) for name, side in sides.items()}
+        out.roots = {name: side.root for name, side in sides.items()}
         out.unported = {
             (method, path): sides["port"].client.json(method, ADMIN + path.replace("{id}", "x").replace(
                 "{name}", "x"))
@@ -415,12 +472,12 @@ def test_object_bodies_are_the_seeded_bytes(boot):
 def test_info_equal_by_shape(boot, tmp_path_factory):
     j, p = boot.log["jax"]["info"], boot.log["port"]["info"]
     assert p[0] == j[0] == 200
-    # "usage" (the scanner) waits for a later slice; "servers" is the peer
-    # fan-out, empty on one node in both packages.
-    jdoc = {k: v for k, v in j[1].items() if k != "usage"}
+    # "usage" is the scanner's summary (no cycle has run: zero counts);
+    # "servers" is the peer fan-out, empty on one node in both packages.
     assert p[1]["servers"] == j[1]["servers"] == []
+    assert p[1]["usage"]["objectsCount"] == j[1]["usage"]["objectsCount"] == 0
     roots = [os.path.dirname(d["endpoint"]) for d in (j[1]["drives"][0], p[1]["drives"][0])]
-    assert shape(p[1], roots[1]) == shape(jdoc, roots[0])
+    assert shape(p[1], roots[1]) == shape(j[1], roots[0])
     assert p[1]["drivesOnline"] == 12 and p[1]["drivesOffline"] == 0
     assert p[1]["buckets"] == {"count": 1}
 
@@ -497,6 +554,32 @@ def test_unported_admin_route_answers_501(boot, route):
     status, doc = boot.unported[(method, path)]
     assert status == 501
     assert doc["Code"] == "NotImplemented" and module in doc["Message"]
+
+
+@pytest.mark.parametrize("route", PORTED_ROUTES)
+def test_ported_admin_route_answers_as_the_jax_handler(boot, route):
+    """The 12 routes that left NOT_PORTED_ROUTES with the pool lifecycle,
+    scanner and tiering slice: the port's status and JSON shape are the JAX
+    handler's."""
+    (sj, dj), (sp, dp) = boot.ported["jax"][route], boot.ported["port"][route]
+    assert sp == sj == 200, (route, sj, dj, sp, dp)
+    assert json_kind(dp, boot.roots["port"]) == json_kind(dj, boot.roots["jax"])
+    method, path = route.split(" ")
+    assert (method, path) not in {(m, p) for m, p, _ in admin.NOT_PORTED_ROUTES}
+    if route == "POST /pools/attach":
+        assert dp == dj == {"pool": 2, "status": "active"}
+    if route == "POST /pools/decommission":
+        assert dp["drain"]["pool_index"] == 2
+        after = boot.ported["port"]["GET /pools/status after"][1]
+        assert [p["status"] for p in after["pools"]] == ["active", "active", "decommissioned"]
+        jax_after = boot.ported["jax"]["GET /pools/status after"][1]
+        assert json_kind(after, boot.roots["port"]) == json_kind(jax_after, boot.roots["jax"])
+    if route == "PUT /quota":
+        assert boot.ported["port"]["GET /quota after"] == boot.ported["jax"]["GET /quota after"] == (
+            200, {"quota": 1 << 30, "quotatype": "hard"})
+    if route == "GET /tiers":
+        assert [t["dir"] for t in dp] == [os.path.join(boot.roots["port"], "tier")]
+        assert "secret_key" not in dp[0]
 
 
 def test_unported_routes_are_every_other_jax_admin_route():

@@ -136,9 +136,23 @@ def served(tmp_path_factory):
         out["restart-user-get"] = (status, hashlib.sha256(body).hexdigest())
         status, body = _request(srv.port, "GET", "/mtpu/admin/v1/users")
         out["restart-users"] = (status, json.loads(body))
+        out["restart-usage"] = _first_scan(srv.port)
     finally:
         out["restart-rc"] = srv.stop()
     return out
+
+
+def _first_scan(port: int, timeout: float = 60.0) -> dict:
+    """/datausage once the server's scanner has finished its first cycle
+    (serve starts it once online; it scans at once, then every minute)."""
+    t0 = time.monotonic()
+    while True:
+        status, body = _request(port, "GET", "/mtpu/admin/v1/datausage")
+        doc = json.loads(body) if status == 200 else {}
+        if doc.get("lastUpdate"):
+            return doc
+        assert time.monotonic() - t0 < timeout, (status, body)
+        time.sleep(0.2)
 
 
 def test_boots_on_cpu_and_serves_signed_put_and_get(served):
@@ -160,6 +174,13 @@ def test_four_format_json_written(served):
 def test_sigterm_exits_0(served):
     assert served["rc"] == 0 and served["restart-rc"] == 0
     assert '"msg": "shutting down"' in served["stdout"]
+
+
+def test_scanner_starts_and_stops_with_serve(served):
+    usage = served["restart-usage"]
+    assert usage["objectsCount"] == 1
+    assert usage["bucketsUsage"]["clibkt"] == {"objectsCount": 1, "size": len(BODY), "versionsCount": 1}
+    assert served["restart-rc"] == 0  # serve stopped the scanner's thread and exited
 
 
 def test_restart_keeps_data_and_the_user(served):

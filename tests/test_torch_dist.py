@@ -433,6 +433,74 @@ def test_mixed_jax_and_port_cluster(tmp_path):
         codec.close()
 
 
+def test_closed_node_does_not_leave_its_codec_as_the_default(tmp_path):
+    """A Node given codec= installs it as the process default; its close()
+    clears that default and leaves the caller's codec open."""
+    from minio_tpu_torch.object import codec as codec_mod
+
+    c = BatchingDeviceCodec(device="cpu")
+    try:
+        node = Node([str(tmp_path / f"d{i}") for i in range(4)], codec=c, device="cpu").build()
+        assert codec_mod._default is c
+        node.close()
+        assert codec_mod._default is not c
+        assert not c._stop.is_set()  # the caller's codec stays the caller's to close
+    finally:
+        c.close()
+
+
+def test_mixed_cluster_attach_reaches_the_follower_and_a_decommission_drains(tmp_path):
+    """A JAX leader and a port follower: POST /pools/attach on the leader
+    (a pool of 8 drives on the leader) reaches the port node through the
+    poolsreload verb, which builds the pool from the persisted config; a
+    decommission of pool 0 on the leader drains it, and the port node sees
+    pool 0 decommissioned and reads every object back from pool 1."""
+    codec = BatchingDeviceCodec(device="cpu")
+    ports = [_free_port(), _free_port()]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    endpoints = [f"{urls[n]}{tmp_path}/n{n}d{d}" for n in range(2) for d in range(4)]
+    jax_node = JaxNode(endpoints, url=urls[0], root_user=ROOT, root_password=SECRET, set_drive_count=8,
+                       codec=JaxHostCodec())
+    port_node = Node(endpoints, url=urls[1], root_user=ROOT, root_password=SECRET, set_drive_count=8, codec=codec,
+                     device="cpu")
+    served = [Served(jax_node, jax_cli._run_app_until, ports[0]), Served(port_node, cli._run_app_until, ports[1])]
+    try:
+        threads = [threading.Thread(target=s.node.build) for s in served]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert jax_node.pools is not None and port_node.pools is not None
+        cj, cp = S3TestClient(urls[0], ROOT, SECRET), S3TestClient(urls[1], ROOT, SECRET)
+        assert cj.make_bucket("expand").status_code == 200
+        for size in SIZES:
+            assert cp.put_object("expand", f"k-{size}", BODIES[size]).status_code == 200
+        new_pool = [f"{urls[0]}{tmp_path}/n0p1d{d}" for d in range(8)]
+        r = cj.request("POST", f"{ADMIN}/pools/attach", body=json.dumps({"endpoints": new_pool}).encode())
+        assert (r.status_code, r.json()) == (200, {"pool": 1, "status": "active"})
+        assert port_node.poolmgr.epoch == jax_node.poolmgr.epoch == 2
+        assert port_node.pools.statuses == ["active", "active"]
+        assert [len(p.disks) for p in port_node.pools.pools] == [8, 8]
+        assert all(isinstance(d, RemoteDrive) for d in port_node.pools.pools[1].disks)
+        r = cj.request("POST", f"{ADMIN}/pools/decommission", body=json.dumps({"pool": 0, "wait": True}).encode())
+        assert r.status_code == 200 and r.json()["drain"]["finished"], r.text
+        assert port_node.pools.statuses == ["decommissioned", "active"]
+        st = cp.request("GET", f"{ADMIN}/pools/status").json()
+        assert [p["status"] for p in st["pools"]] == ["decommissioned", "active"]
+        assert st["pools"][0]["drain"]["objects_moved"] == len(SIZES)
+        for size in SIZES:
+            got = cp.get_object("expand", f"k-{size}")
+            assert (got.status_code, got.content == BODIES[size]) == (200, True), size
+        for d in range(4):
+            for n in range(2):
+                assert not os.path.exists(f"{tmp_path}/n{n}d{d}/expand/k-mid/xl.meta")
+            assert os.path.exists(f"{tmp_path}/n0p1d{d}/expand/k-mid/xl.meta")
+    finally:
+        for s in served:
+            s.stop()
+        codec.close()
+
+
 # -- on the card --------------------------------------------------------------------------------
 
 

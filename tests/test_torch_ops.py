@@ -511,6 +511,9 @@ def test_import_checks_cover_the_boot_path():
     for m in (
         "_probe_child", "runtime", "cli", "__main__", "dist", "dist.node", "api.admin",
         "control.config", "control.healmgr", "ops.goldens",
+        # Pool lifecycle, the scanner and tiering (node.py wires them).
+        "object.poolmgr", "control.rebalance", "control.scanner", "control.usage",
+        "control.lifecycle", "control.tiering", "control.replication",
     ):
         assert f"minio_tpu_torch.{m}" in mods
         rel = m.replace(".", "/") + ("/__init__.py" if m == "dist" else ".py")

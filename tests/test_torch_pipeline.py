@@ -17,6 +17,7 @@ from minio_tpu.models.pipeline import ErasurePipeline as JaxPipeline
 from minio_tpu.models.pipeline import Geometry as JaxGeometry
 from minio_tpu.object.codec import HostCodec as JaxHostCodec
 from minio_tpu_torch.models.pipeline import ErasurePipeline, Geometry, kernel_status
+from minio_tpu_torch.object import codec as codec_mod
 from minio_tpu_torch.object.codec import DeviceCodec, default_codec
 from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
 
@@ -71,9 +72,12 @@ def test_verify_digests_matches_jax_pipeline(jax_encoded, port_pipe):
     np.testing.assert_array_equal(port_pipe.verify_digests(full[:, :6]).numpy(), digests[:, :6])
 
 
-def test_cuda_without_card_raises():
+def test_cuda_without_card_raises(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
+    # Whatever an earlier test in this process installed as the default is
+    # not this test's subject: default_codec() must build the cuda codec.
+    monkeypatch.setattr(codec_mod, "_default", None)
     with pytest.raises(RuntimeError):
         ErasurePipeline(Geometry(K, M))
     with pytest.raises(RuntimeError):
