@@ -70,25 +70,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    14+2, SIPMOD+PARITY), built by ErasureSets.from_drives; pool 1 is 16
    drives, 1 set, attached later by ServerPools.add_pool (SUSPENDED, then
    ACTIVE) while pool 0 turns DRAINING. Every set shares the phase's codec.
-   768 objects (1,024 before the cut that made room for phase 11, 2,048
-   before the one for phase 10) from one numpy generator (names
+   512 objects (768 before the cut that made room for phase 12, 1,024
+   before the one for phase 11, 2,048 before the one for phase 10) from
+   one numpy generator (names
    tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants and 8 days, sizes
    log-uniform from 1 KiB to 4 MiB, one in 8 REDUCED_REDUNDANCY), from 16
-   client threads: 576 PUT into pool 0; 32 of them, of every size class
+   client threads: 384 PUT into pool 0; 32 of them, of every size class
    and both storage classes, PUT again into a numpy HostCodec copy of
    pool 0 must leave the same part files and inline data; the listing of
    pool 0 is exact in pages of 1,000 with and without a delimiter and a
    prefix, its second page served by the metacache, and
    list_object_versions pages through versioned overwrites and a delete
    marker with key and version markers; after the attach the
-   other 192 and 64 overwrites of pool-0 keys land in pool 1; every object's
-   xl.meta lies only on its hashed set's drives; a GET of all 768 is
+   other 128 and 48 overwrites of pool-0 keys land in pool 1; every object's
+   xl.meta lies only on its hashed set's drives; a GET of all 512 is
    byte-exact (an overwritten key reads its new bytes); the listing of both
    pools is exact without a delimiter (the delimiter listing and the
    version listing are printed, not held: the reference's multi-pool merges
    can skip keys and end a version listing early); delete_objects removes
-   192 keys
-   from the listing; with the part files and xl.meta of 4 drives of pool
+   128 keys from the listing; with the part files and xl.meta of 4 drives of pool
    0's set 1 removed (2 of them for a 14+2 object), a GET of every object
    of that set is byte-exact and heal_object rebuilds each, byte-identical;
    heal_bucket recreates a drive's lost bucket directory. The PUTs, the
@@ -110,8 +110,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with the counts reset before it and read after:
    - http_put: 256 new objects (tenant-XX/YYYY-MM-DD/http-NNNNN, phase 5's
      size law, one in 8 REDUCED_REDUNDANCY); both kernels;
-   - http_get: those 256 and 256 of phase 5's surviving objects in pool 0
-     (pool 1's lost one drive's copy to phase 5's heal_bucket check),
+   - http_get: those 256 and 128 of phase 5's surviving objects in pool 0
+     (256 before the cut that made room for phase 12; pool 1's lost one
+     drive's copy to phase 5's heal_bucket check),
      byte-exact; hh256, and rs_gf_apply only for windows where a hedged
      spare read beat a slow primary (at most 2 launches a winning hedge).
      Every HTTP-PUT object then also reads back byte-identical through
@@ -270,9 +271,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      then hold the 32 new objects' part files equal to the host codec's, no
      drive holds stage debris, the refused RRS PUT left no object, and
      every object (the RRS ones too) reads back byte-exact through node 4.
-   - 10f: SIGTERM to the four nodes; each exits 0.
+   - before 10f, the operations plane: POST /speedtest/object through node
+     1 with concurrency and max_concurrency 8, one round of 16 PUTs and
+     GETs a node (1 MiB objects; the selftestobject verb runs
+     each node's share on its own card codec): every node's entry is ok and
+     every node's /perf shows encode and verify batches; GET /metrics
+     through node 1; a ListenNotification stream on node 2 gets the events
+     of 8 PUTs through node 3, over the peer listen stream (after warm-up
+     PUTs through node 3 until its first record arrives, since the peer
+     streams attach after the watcher's 200).
+   - 10f: SIGTERM to the four nodes; each exits 0 within 30 s (one that
+     does not has the stacks of its threads in the port's code printed). A
+     node's scanner gets 10 s to reach its next object; one still inside a
+     call is left behind, and the node's log line with its stack is shown.
    The kernels ran in the node processes: the kernels line carries each
-   node's codec records by step (codec_records_by_node).
+   node's codec records by step (codec_records_by_node), the cluster
+   speedtest's included.
 
 11. Pool lifecycle, the scanner and tiering (object/poolmgr.py,
    control/rebalance.py, scanner.py, usage.py, lifecycle.py, tiering.py):
@@ -310,8 +324,50 @@ Phases, each of which raises on failure (the script then exits non-zero):
      expired removes the copies, and /datausage then counts the live
      objects.
 
+12. Events and operations (control/events.py, event_targets.py,
+   api/streams.py, control/metrics.py, selftest.py, health.py,
+   bandwidth.py, flight.py, update.py): a port Node in this process over
+   one 16-drive pool (12+4, RRS 14+2) on the process's probe verdict, as in
+   phase 11, served over HTTP, with a webhook receiver (http.server on
+   127.0.0.1 in this process) enabled as an operator enables it, through
+   the notify_webhook config the node's build reads. Requests come signed
+   from phase 6's client process; the streams are read in this process.
+   Each path zeroes the kernel counts before it and prints its wall time,
+   codec records and both kernels' launches after it; no path may reach
+   the host codec.
+   - 12a (path events_put): PUT ?notification (s3:ObjectCreated:* on
+     prefix tenant-00/, s3:ObjectRemoved:* on the bucket) and a
+     ListenNotification stream for s3:ObjectCreated:*; then 64 PUTs of
+     phase 5's size law over 4 tenants, 4 CopyObjects, a 3-part multipart
+     upload, 8 DELETEs and a POST ?delete of 8 keys. The receiver gets
+     exactly the matching records, each created one with the size, ETag
+     and version id of its object's HEAD; the stream gets every
+     ObjectCreated record. The receiver stops and 16 more PUTs leave 16
+     records pending and 16 spool files under the first drive; back up, all
+     16 arrive once each. A lifecycle expiring tenant-01 and one
+     scan_cycle (its sleeper off) deliver one s3:ObjectRemoved:Expired
+     record per expired object.
+   - 12b: POST /speedtest/object with 1 MiB objects and the default ramp
+     (start 4, max 32, 2 ops a worker; path selftest_object; both kernels;
+     the scratch bucket is gone from every drive afterwards), then POST
+     /speedtest, the legacy autotune (path speedtest_legacy). GET /metrics
+     right after: every minio_tpu_codec_* sample equals the codec's
+     stats() read just after the scrape, and over the two speedtests the
+     encode and small-encode batch counters grew by their codec records
+     (verify and reconstruct by at least theirs: one record can cover
+     several launches). POST /speedtest/drive at 4 MiB a drive, POST
+     /speedtest/net, and the GET of each probe's last result;
+     /timeseries, /healthinfo (16 drives), /bandwidth, /kms/status; a
+     /trace stream around 8 PUTs holds one http record and one span tree
+     for each; POST /flight/dump, then GET /flight lists the bundle and GET
+     /flight/{id} returns it; POST /update of a file:// release the script
+     builds and signs with an ed25519 key it makes: staged, not applied,
+     and GET /update reports the running version with the key configured.
+   The node's close() leaves no sender thread of its target and no armed
+   flight recorder.
+
 The line before the last is a JSON object describing each kernel, with its
-launches by path (phases 7, 8a and 11 included); the last
+launches by path (phases 7, 8a, 11 and 12 included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 
@@ -1174,13 +1230,14 @@ def _size_class(n: int) -> str:
 
 class Traffic:
     """The objects of phase 5, all from one numpy generator: names
-    tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants and 8 days, sizes
-    log-uniform from 1 KiB to 4 MiB, one object in 8 REDUCED_REDUNDANCY.
-    The bytes are one buffer made in bulk; each object is a view of it."""
+    tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants (or `tenants`) and 8
+    days, sizes log-uniform from 1 KiB to 4 MiB, one object in 8
+    REDUCED_REDUNDANCY. The bytes are one buffer made in bulk; each object
+    is a view of it."""
 
-    def __init__(self, seed: int, n: int, max_size: int = 4 * MiB, stem: str = "obj"):
+    def __init__(self, seed: int, n: int, max_size: int = 4 * MiB, stem: str = "obj", tenants: int = TENANTS):
         rng = np.random.default_rng(seed)
-        tenants = rng.integers(0, TENANTS, n)
+        tenants = rng.integers(0, tenants, n)
         days = rng.integers(0, DAYS, n)
         self.names = [f"tenant-{t:02d}/2024-01-{d + 1:02d}/{stem}-{i:05d}"
                       for i, (t, d) in enumerate(zip(tenants, days))]
@@ -1306,7 +1363,7 @@ def _shape_summary(counts: dict) -> dict:
     return {"hh256": dict(sorted(hh.items())), "rs_gf_apply": dict(sorted(rs.items()))}
 
 
-def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 768, threads: int = 16,
+def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 512, threads: int = 16,
                 max_size: int = 4 * MiB, seed: int = 5, rates: dict | None = None) -> tuple[dict, SimpleNamespace]:
     """A 48-drive deployment through ServerPools: see the module docstring.
     Returns the paths' counts and the deployment as it stands after the
@@ -1785,8 +1842,8 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
             out = list(ex.map(fn, items))
         return out, time.perf_counter() - t0
 
-    def register(seed: int, n: int, max_size: int, stem: str) -> int:
-        objects.update(Traffic(seed, n, max_size, stem).data)
+    def register(seed: int, n: int, max_size: int, stem: str, tenants: int = TENANTS) -> int:
+        objects.update(Traffic(seed, n, max_size, stem, tenants).data)
         return n
 
     def register_bytes(name: str, seed: int, nbytes: int) -> int:
@@ -1900,8 +1957,9 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
             raise AssertionError(f"DeleteObjects: {st}, {deleted} deleted of {len(names)}: {body[:300]!r}")
         return deleted
 
-    def request(method: str, path: str, query=(), headers=None, body=b"", sign=True, tamper=False) -> tuple:
-        st, h, data, _ = send(method, path, query, headers, body, sign=sign, fresh=True, tamper=tamper)
+    def request(method: str, path: str, query=(), headers=None, body=b"", sign=True, tamper=False,
+                node: int = 0) -> tuple:
+        st, h, data, _ = send(method, path, query, headers, body, sign=sign, fresh=True, tamper=tamper, node=node)
         return st, h, data[:4096]
 
     def admin(method: str, path: str, query=(), doc=None, node: int = 0) -> tuple:
@@ -1993,7 +2051,7 @@ def _percentile(values: list, q: float) -> float:
 
 
 def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: dict, rates: dict,
-               n_put: int = 256, n_get_old: int = 256, big_mib: int = 128, part_mib: int = 8,
+               n_put: int = 256, n_get_old: int = 128, big_mib: int = 128, part_mib: int = 8,
                threads: int = HTTP_THREADS, seed: int = 6, degraded_set: int = 0) -> dict:
     """Phase 5's deployment behind the port's S3Server, driven by signed
     HTTP from a client process: see the module docstring."""
@@ -2711,7 +2769,10 @@ class CliServer:
 
     def __init__(self, args: list, port: int, env: dict | None = None):
         self.port = port
-        full = dict(os.environ, MINIO_ROOT_USER=HTTP_CREDS[0], MINIO_ROOT_PASSWORD=HTTP_CREDS[1])
+        # PYTHONFAULTHANDLER: a server that will not stop dumps every
+        # thread's stack on the SIGABRT stop() sends it.
+        full = dict(os.environ, MINIO_ROOT_USER=HTTP_CREDS[0], MINIO_ROOT_PASSWORD=HTTP_CREDS[1],
+                    PYTHONFAULTHANDLER="1")
         full.pop("MINIO_TPU_CODEC", None)
         full.pop("MTPU_CRASH", None)
         full.update(env or {})
@@ -2769,11 +2830,43 @@ class CliServer:
         try:
             rc = self.proc.wait(timeout)
         except subprocess.TimeoutExpired:
-            self.proc.kill()
-            self.proc.wait(10)
-            raise AssertionError(f"the server did not exit within {timeout} s of SIGTERM")
+            self.proc.send_signal(signal.SIGABRT)
+            try:
+                self.proc.wait(10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(10)
+            self._reader.join(5)
+            out, busy, idle = _split_stacks(self.text())
+            raise AssertionError(f"the server did not exit within {timeout} s of SIGTERM; the end of its "
+                                 f"output:\n{out[-2000:]}\nthe stacks of its {len(busy)} threads in the port's "
+                                 f"code ({idle} others idle in the standard library):\n" + "\n".join(busy)[-12000:])
         self._reader.join(5)
         return rc, time.perf_counter() - t
+
+
+def _split_stacks(text: str) -> tuple[str, list, int]:
+    """Split a server's output at its faulthandler dump: (the output before
+    it, the stacks of threads with a frame in the port's code, the count of
+    the others, idle pool workers and the like)."""
+    head, sep, dump = text.partition("Fatal Python error")
+    busy, idle = [], 0
+    for block in re.split(r"\n(?=(?:Thread|Current thread) 0x)", sep + dump)[1:]:
+        block = block.split("\nExtension modules:")[0].rstrip()
+        if "minio_tpu_torch" in block:
+            busy.append(block)
+        else:
+            idle += 1
+    return head, busy, idle
+
+
+def _stack_tail(stack: str) -> list:
+    """A logged thread stack cut to its frames in the port's code and its
+    innermost frame, each as "file:line in function"."""
+    frames = re.findall(r'File "([^"]+)", line (\d+), in (\S+)', stack)
+    keep = [f for f in frames[:-1] if "minio_tpu_torch" in f[0]] + frames[-1:]
+    return [f"{path.split('minio_tpu_torch/')[-1] if 'minio_tpu_torch/' in path else os.path.basename(path)}:"
+            f"{line} in {fn}" for path, line, fn in keep]
 
 
 def _signed_status(port: int, method: str, path: str, auth) -> int:
@@ -3376,10 +3469,13 @@ def _latest_versions(dirs: list, name: str) -> set:
 
 def phase_cluster(smi: str, root: str, device: str = "cuda", n_objects: int = 128, big_mib: int = 64,
                   n_new: int = 32, n_race: int = 8, race_kib: int = 512, n_sample: int = 8,
-                  max_size: int = 4 * MiB, threads: int = HTTP_THREADS) -> dict:
+                  max_size: int = 4 * MiB, threads: int = HTTP_THREADS, speedtest: dict | None = None) -> dict:
     """10a-10f: four `python3 -m minio_tpu_torch server --url ...` processes
     over one 16-drive endpoint list, each node with 4 drives of its own: see
-    the module docstring. Returns the codec records by node of each step."""
+    the module docstring. Returns the codec records by node of each step.
+    `speedtest` is the body of the cluster speedtest's POST (default one
+    round at concurrency 8, 1 MiB objects; smaller for a rehearsal on the
+    CPU)."""
     from minio_tpu_torch.object.codec import HostCodec
     from minio_tpu_torch.object.sets import ErasureSets
     from minio_tpu_torch.object.types import PutObjectOptions
@@ -3582,19 +3678,71 @@ def phase_cluster(smi: str, root: str, device: str = "cuda", n_objects: int = 12
             f"the host codec's, no debris on the 16 drives, the refused RRS PUT absent; all {len(everything)} objects "
             f"(the RRS ones too) GET byte-exact from node 4 "
             f"({len(everything) / back['wall']:.1f} objects/s) [{smi}]")
+
+        # The operations plane of the cluster: a speedtest through node 1 runs
+        # the selftestobject verb on every node's own card codec; /metrics;
+        # a listen stream on node 2 gets the events of PUTs through node 3
+        # over the peer listen stream.
+        t_ops = time.perf_counter()
+        _reset_cluster(client)
+        t = time.perf_counter()
+        st, report = client.call("admin", "POST", f"{ADMIN_PREFIX}/speedtest/object", (),
+                                 speedtest or {"concurrency": 8, "max_concurrency": 8})
+        speed_s = time.perf_counter() - t
+        records["cluster_speedtest"] = _codec_records(client, range(CLUSTER_NODES))
+        if st != 200 or sorted(report["nodes"]) != sorted(urls) or \
+                not all(r.get("ok") for r in report["nodes"].values()):
+            raise AssertionError(f"10: POST /speedtest/object through node 1: {st} {report}")
+        for nd, recs in records["cluster_speedtest"].items():
+            if not (recs.get("encode-batch", 0) + recs.get("encode-batch-small", 0)) or not recs.get("verify-batch"):
+                raise AssertionError(f"10: the cluster speedtest made no encode or verify batch on {nd}: {recs}")
+        st, text = client.call("admin", "GET", f"{ADMIN_PREFIX}/metrics")
+        if st != 200 or not text.startswith(b"# HELP "):
+            raise AssertionError(f"10: GET /metrics through node 1: {st} {text[:200]!r}")
+        n_listen = client.call("register", 99, 8, MiB, "listen", EV_TENANTS)
+        heard = Traffic(99, n_listen, MiB, "listen", EV_TENANTS).names
+        listen = _Stream(ports[1], "/bench", [("events", "s3:ObjectCreated:*")])
+        try:
+            # The peer streams attach after the watcher's 200: PUT through
+            # node 3 until its first record reaches node 2's watcher.
+            warm = 0
+            while not listen.records:
+                if warm == 50:
+                    raise AssertionError("10: no record of node 3 reached the listen stream on node 2")
+                client.call("request", "PUT", f"/bench/cl/listen-warm-{warm}", (), None, b"warm", True, False, 2)
+                warm += 1
+                time.sleep(0.1)
+            client.call("put", heard, {}, threads, dict.fromkeys(heard, 2))
+            want_keys = {f"bench/{k}" for k in heard}
+            listen.wait(lambda recs: want_keys <= {r["Key"] for r in recs}, 30, "node 3's events on node 2")
+        finally:
+            listen.close()
+        agg = report["aggregate"]
+        log(f"10 operations: POST /speedtest/object through node 1 in {speed_s:.2f} s, every node's entry ok: "
+            f"best concurrency {report['concurrency']}, PUT {agg['put_gibs']} GiB/s, GET {agg['get_gibs']} GiB/s, "
+            f"scaling {json.dumps(report['scaling'])}; codec records by node "
+            f"{json.dumps(records['cluster_speedtest'])}; GET /metrics 200; a listen stream on node 2 got the "
+            f"{len(heard)} PUTs through node 3 (after {warm} warm-up PUTs); {time.perf_counter() - t_ops:.1f} s "
+            f"[{smi}]")
     finally:
         if client is not None:
             client.close()
         # 10f: SIGTERM to all four; each exits 0.
-        rcs = []
+        rcs, waits = [], []
         for srv in srvs:
             try:
-                rcs.append(srv.stop(30)[0])
+                rc, waited = srv.stop(30)
+                rcs.append(rc)
+                waits.append(round(waited, 2))
             except AssertionError as e:
                 rcs.append(str(e))
     if rcs != [0] * CLUSTER_NODES:
         raise AssertionError(f"10f: SIGTERM rcs {rcs}")
-    log(f"10f SIGTERM to the 4 nodes: rc {rcs}")
+    # A node whose scanner outlived its shutdown grace logs where it was.
+    busy = {n + 1: _stack_tail(json.loads(ln)["stack"]) for n, srv in enumerate(srvs)
+            for _, ln in srv.lines if '"msg": "scanner still busy at shutdown"' in ln}
+    log(f"10f SIGTERM to the 4 nodes: rc {rcs}, exited in {waits} s; scanners still busy at shutdown, by "
+        f"node, with the end of their stacks: {json.dumps(busy) if busy else 'none'}")
     shutil.rmtree(base, ignore_errors=True)
     return records
 
@@ -3916,6 +4064,547 @@ def phase_lifecycle(smi: str, root: str, tally: Tally, device: str = "cuda", n_o
     return paths
 
 
+# -- phase 12: events and operations ---------------------------------------------------------
+
+EV_TENANTS = 4  # 12a's traffic: phase 5's size law over 4 tenants
+EV_RULES = (
+    "<NotificationConfiguration>"
+    "<QueueConfiguration><Id>created</Id><Queue>arn:minio:sqs::1:webhook</Queue><Event>s3:ObjectCreated:*</Event>"
+    "<Filter><S3Key><FilterRule><Name>prefix</Name><Value>tenant-00/</Value></FilterRule></S3Key></Filter>"
+    "</QueueConfiguration>"
+    "<QueueConfiguration><Id>removed</Id><Queue>arn:minio:sqs::1:webhook</Queue><Event>s3:ObjectRemoved:*</Event>"
+    "</QueueConfiguration></NotificationConfiguration>"
+)
+EV_EXPIRE = "tenant-01/"  # 12a: the lifecycle expires this tenant; no other step touches it
+EV_LIFECYCLE = (
+    "<LifecycleConfiguration><Rule><ID>expire</ID><Status>Enabled</Status>"
+    f"<Filter><Prefix>{EV_EXPIRE}</Prefix></Filter><Expiration><Date>2020-01-01T00:00:00Z</Date></Expiration>"
+    "</Rule></LifecycleConfiguration>"
+)
+# The codec series of /metrics and the stats() key each one renders.
+CODEC_SERIES = {
+    "minio_tpu_codec_blocks_encoded_total": "blocks_encoded",
+    "minio_tpu_codec_encode_batches_total": "batches_run",
+    "minio_tpu_codec_blocks_reconstructed_total": "blocks_reconstructed",
+    "minio_tpu_codec_recon_batches_total": "recon_batches_run",
+    "minio_tpu_codec_digests_verified_total": "digests_verified",
+    "minio_tpu_codec_verify_batches_total": "verify_batches_run",
+    "minio_tpu_codec_small_blocks_encoded_total": "small_blocks_encoded",
+    "minio_tpu_codec_small_batches_total": "small_batches_run",
+    "minio_tpu_codec_double_buffered_batches_total": "double_buffered_batches",
+    "minio_tpu_codec_mesh_devices": "mesh_devices",
+}
+UPDATE_SEED = bytes(range(7, 39))  # 12b: the ed25519 seed of the release signing key the script makes
+
+
+class _Receiver:
+    """The webhook receiver of phase 12: an http.server on 127.0.0.1 that
+    keeps every record POSTed to it; stop() closes its socket (the target
+    then spools), start() listens again on the same port."""
+
+    def __init__(self):
+        self.port = _free_port()
+        self.url = f"http://127.0.0.1:{self.port}/hook"
+        self.records: list = []
+        self._lock = threading.Lock()
+        self._httpd = self._thread = None
+
+    def start(self) -> None:
+        import http.server
+
+        keep = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                doc = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+                with keep._lock:
+                    keep.records.append(doc)
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer(("127.0.0.1", self.port), Handler)
+        self._thread = threading.Thread(target=self._httpd.serve_forever, args=(0.1,), daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._thread.join(10)
+            self._httpd = None
+
+    def take(self) -> list:
+        with self._lock:
+            out, self.records = self.records, []
+        return out
+
+    def wait(self, n: int, timeout: float, what: str) -> list:
+        """Wait until n records have come in, then a moment more for any
+        record past n (none may come), and take them all."""
+        _wait_for(lambda: len(self.records) >= n, timeout, what)
+        time.sleep(0.5)
+        return self.take()
+
+
+class _Stream:
+    """A signed streaming GET made from this process (ListenNotification,
+    admin /trace): a thread reads its NDJSON records until close(), which
+    goes away as a client does; the server's pump must then end."""
+
+    def __init__(self, port: int, path: str, query: list):
+        import http.client
+        import urllib.parse
+
+        from minio_tpu_torch.api import auth
+
+        h = auth.sign_request(auth.Credentials(*HTTP_CREDS), "GET", path, query, {"host": f"127.0.0.1:{port}"}, b"")
+        h.pop("host")
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        self.conn.request("GET", path + ("?" + urllib.parse.urlencode(query) if query else ""), headers=h)
+        self._sock = self.conn.sock  # the response keeps reading it once the connection lets go of it
+        self.resp = self.conn.getresponse()
+        if self.resp.status != 200:
+            raise AssertionError(f"stream {path}: {self.resp.status} {self.resp.read()[:300]!r}")
+        self.records: list = []
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self) -> None:
+        with contextlib.suppress(Exception):  # the socket closes under the reader
+            while True:
+                line = self.resp.readline()
+                if not line:
+                    return
+                if line.strip():
+                    self.records.append(json.loads(line))
+
+    def wait(self, pred, timeout: float, what: str) -> None:
+        _wait_for(lambda: pred(list(self.records)), timeout, what)
+
+    def close(self) -> None:
+        import socket
+
+        with contextlib.suppress(OSError):
+            self._sock.shutdown(socket.SHUT_RDWR)
+        self.conn.close()
+        self._thread.join(10)
+        self._sock.close()
+
+
+def _signed_text(port: int, path: str, query=()) -> tuple[int, str]:
+    """A signed GET from this process: (status, the whole body as text)."""
+    import http.client
+    import urllib.parse
+
+    from minio_tpu_torch.api import auth
+
+    h = auth.sign_request(auth.Credentials(*HTTP_CREDS), "GET", path, list(query), {"host": f"127.0.0.1:{port}"},
+                          b"")
+    h.pop("host")
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        c.request("GET", path + ("?" + urllib.parse.urlencode(list(query)) if query else ""), headers=h)
+        r = c.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        c.close()
+
+
+def _codec_series(text: str) -> dict:
+    """{(name, labels): value} of the minio_tpu_codec_* samples of an exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("minio_tpu_codec_"):
+            name_labels, value = line.rsplit(" ", 1)
+            name, _, labels = name_labels.partition("{")
+            out[(name, labels.rstrip("}"))] = float(value)
+    return out
+
+
+def _series_of_stats(st: dict, depths: dict) -> dict:
+    """The codec series that control/metrics.py renders from one stats() and
+    queue_depths() read, keyed as _codec_series keys them."""
+    out = {(name, ""): float(st[key]) for name, key in CODEC_SERIES.items()}
+    out[("minio_tpu_codec_batch_occupancy", "")] = (
+        round(st["blocks_encoded"] / st["blocks_padded"], 4) if st["blocks_padded"] else 0.0)
+    for kind, key in (("encode", "host_fallback_blocks"), ("reconstruct", "host_fallback_recon_blocks"),
+                      ("digest", "host_fallback_digest_chunks")):
+        out[("minio_tpu_codec_host_fallback_total", f'kind="{kind}"')] = float(st[key])
+    for kernel, key in (("encode", "device_encode_seconds"), ("reconstruct", "device_recon_seconds"),
+                        ("verify", "device_verify_seconds")):
+        out[("minio_tpu_codec_device_seconds_total", f'kernel="{kernel}"')] = round(st[key], 6)
+    for chip, blocks in enumerate(st["chip_blocks"]):
+        out[("minio_tpu_codec_chip_blocks_total", f'chip="{chip}"')] = float(blocks)
+    for geom, depth in depths.items():
+        out[("minio_tpu_codec_queue_depth", f'geometry="{geom}"')] = float(depth)
+    return out
+
+
+def _make_release(mirror: str) -> str:
+    """A file:// release mirror signed with an ed25519 key made from
+    UPDATE_SEED (control/update.py's layout: RELEASE.json, its detached
+    signature, a tar.gz holding a minio_tpu_torch/ tree); returns the
+    public key, base64."""
+    import base64
+    import io
+    import tarfile
+
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PrivateKey
+
+    os.makedirs(mirror, exist_ok=True)
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tf:
+        data = b'__version__ = "0.6.0"\n'
+        info = tarfile.TarInfo("minio_tpu_torch/__init__.py")
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+    blob = buf.getvalue()
+    with open(os.path.join(mirror, "release.tar.gz"), "wb") as f:
+        f.write(blob)
+    manifest = json.dumps({"version": "0.6.0", "sha256": hashlib.sha256(blob).hexdigest(),
+                           "archive": "release.tar.gz"}).encode()
+    key = Ed25519PrivateKey.from_private_bytes(UPDATE_SEED)
+    with open(os.path.join(mirror, "RELEASE.json"), "wb") as f:
+        f.write(manifest)
+    with open(os.path.join(mirror, "RELEASE.json.sig"), "wb") as f:
+        f.write(key.sign(manifest))
+    return base64.b64encode(key.public_key().public_bytes_raw()).decode()
+
+
+def phase_events_ops(smi: str, root: str, tally: Tally, device: str = "cuda", n_put: int = 64, n_spool: int = 16,
+                     n_trace: int = 8, max_size: int = 4 * MiB, threads: int = HTTP_THREADS, seed: int = 120,
+                     st_size: int = MiB, st_ramp: dict | None = None) -> dict:
+    """Phase 12: bucket events and the operations plane through a port Node
+    in this process over one 16-drive pool (no codec=: the process's probe
+    verdict), served over HTTP, with a webhook target enabled through the
+    notify_webhook config its build reads; all traffic is signed S3 and
+    admin from phase 6's client process, the streams are read here. 12a
+    (path events_put): the notification rules, a ListenNotification stream,
+    n_put PUTs over 4 tenants, 4 copies, a 3-part multipart upload, 8
+    DELETEs and a bulk delete of 8; the receiver gets exactly the matching
+    records, each with its object's HEAD, and the stream every
+    ObjectCreated. Then the receiver stops, n_spool PUTs wait in the spool on
+    the first drive, and all arrive once each when it is back; a lifecycle
+    and one scanner cycle deliver one ObjectRemoved:Expired per expired
+    object. 12b: the object speedtest at 1 MiB with the default ramp (path
+    selftest_object; the scratch bucket left empty), the legacy autotune
+    (path speedtest_legacy), the drive probe at 4 MiB, /metrics held
+    against the codec's stats(), /timeseries, /healthinfo, /bandwidth,
+    /kms/status, a /trace stream around n_trace PUTs, a flight dump read
+    back, and a signed file:// release staged by POST /update. Returns the
+    kernel counts of its three paths. (st_size and st_ramp shrink the
+    speedtests for a rehearsal on the CPU: st_ramp is the object speedtest's
+    concurrency and max_concurrency, and turns the legacy one into its
+    one-object serial mode.)"""
+    from minio_tpu_torch import __version__, cli, runtime
+    from minio_tpu_torch.control.flight import GLOBAL_FLIGHT
+    from minio_tpu_torch.control.perf import GLOBAL_PERF
+    from minio_tpu_torch.control.selftest import SCRATCH_BUCKET
+    from minio_tpu_torch.dist.node import Node
+    from minio_tpu_torch.storage.format import SYS_DIR
+
+    t_phase = time.perf_counter()
+    paths: dict = {}
+    base = os.path.join(root, "events")
+    dirs = [os.path.join(base, _drive_name(i)) for i in range(DRIVES)]
+    rcv = _Receiver()
+    rcv.start()
+    env = {"MINIO_TPU_NOTIFY_WEBHOOK_ENABLE": "on", "MINIO_TPU_NOTIFY_WEBHOOK_ENDPOINT": rcv.url}
+    saved = {k: os.environ.get(k) for k in (*env, "MINIO_TPU_UPDATE_PUBKEY")}
+    os.environ.update(env)
+    node = Node(dirs, root_user=HTTP_CREDS[0], root_password=HTTP_CREDS[1], device=device)
+    app = node.make_app()
+    stop = threading.Event()
+    port = _free_port()
+    thread, errs = cli._run_app_until(app, "127.0.0.1", port, stop)
+    if errs:
+        raise AssertionError(f"12: the app did not start: {errs}")
+    client = None
+    streams: list = []
+    target = None
+    try:
+        t = time.perf_counter()
+        node.build()
+        for k in env:
+            os.environ.pop(k)
+        codec = node.codec
+        if type(codec).__name__ != "BatchingDeviceCodec" or codec.device.type != device:
+            raise AssertionError(f"12: the node serves {type(codec).__name__} on {getattr(codec, 'device', '?')}")
+        if list(node.notifier.targets) != ["webhook"] or node.notify_target_errors:
+            raise AssertionError(f"12: targets {list(node.notifier.targets)}, errors {node.notify_target_errors}")
+        target = node.notifier.targets["webhook"]
+        log(f"12 node boot in {time.perf_counter() - t:.2f} s: {type(codec).__name__} on {codec.device}; the "
+            f"webhook target from the notify_webhook config, spooling under the first drive")
+        client = HttpClient(f"http://127.0.0.1:{port}")
+
+        def admin(method: str, path: str, doc=None, query=()) -> dict:
+            st, out = client.call("admin", method, f"{ADMIN_PREFIX}{path}", query, doc)
+            if st != 200:
+                raise AssertionError(f"12 admin {method} {path}: {st} {out}")
+            return out
+
+        def request(method: str, path: str, query=(), headers=None, body=b"", want: int = 200) -> tuple:
+            st, h, out = client.call("request", method, path, query, headers, body)
+            if st != want:
+                raise AssertionError(f"12 {method} {path}: {st}, want {want}: {out[:300]!r}")
+            return h, out
+
+        def step(path: str | None, label: str, fn, n: int, need=("rs_gf_apply", "hh256")):
+            """One step with every count zeroed just before it; prints its wall
+            time, objects/s, codec records and kernel launches after it."""
+            tally.reset()
+            GLOBAL_PERF.ledger.reset()
+            t0 = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t0
+            counts = tally.read(path or label, need)
+            _no_host_fallback(codec, path or label)
+            recs = _codec_ledger()
+            if path is not None:
+                paths[path] = counts
+            log(f"12 {label}: {wall:.2f} s, {n} objects, {n / wall:.1f} objects/s; codec records "
+                f"{json.dumps(recs)}; launches {json.dumps(counts['launches'])} [{smi}]")
+            return res, recs
+
+        # 12a: the rules, a listen stream, the traffic.
+        request("PUT", "/bench")
+        request("PUT", "/bench", [("notification", "")], None, EV_RULES.encode())
+        listen = _Stream(port, "/bench", [("events", "s3:ObjectCreated:*")])
+        streams.append(listen)
+        n = client.call("register", seed, n_put, max_size, "ev", EV_TENANTS)
+        traffic = Traffic(seed, n, max_size, "ev", EV_TENANTS)
+        names = traffic.names
+        rrs = {k: {"x-amz-storage-class": "REDUCED_REDUNDANCY"} for k in names if traffic.storage_class[k]}
+        tenant = {k: k.split("/")[0] + "/" for k in names}
+        others = [k for k in names if tenant[k] not in ("tenant-00/", EV_EXPIRE)]
+        sources = sorted(others, key=lambda k: len(traffic.data[k]))[-4:]  # the biggest: copies past the inline limit
+        copies = [(src, f"{('tenant-00/', 'tenant-03/')[i % 2]}copies/copy-{i}") for i, src in enumerate(sources)]
+        doomed = [k for k in others if k not in sources][:16]
+        singles, bulk = doomed[:8], doomed[8:]
+        mp_name = "tenant-00/mp/upload-0"
+        client.call("register_bytes", mp_name, seed + 1, 11 * MiB)
+        created = names + [dst for _, dst in copies] + [mp_name]
+        heads: dict = {}
+
+        def traffic_12a():
+            client.call("put", names, rrs, threads)
+            for src, dst in copies:
+                request("PUT", f"/bench/{dst}", (), {"x-amz-copy-source": f"/bench/{src}"})
+            client.call("multipart", mp_name, 5 * MiB, 3)
+            for k in created:
+                h, _ = request("HEAD", f"/bench/{k}")
+                heads[k] = (int(h["content-length"]), h["etag"].strip('"'), h.get("x-amz-version-id", ""))
+            for k in singles:
+                request("DELETE", f"/bench/{k}", want=204)
+            client.call("delete", bulk)
+
+        step("events_put", f"12a events traffic: {n} PUTs over {EV_TENANTS} tenants, {len(copies)} copies, a 3-part "
+                           f"multipart upload, {len(singles)} DELETEs and a bulk delete of {len(bulk)}",
+             traffic_12a, n + len(copies) + 1 + len(doomed))
+        want = collections.Counter([("s3:ObjectCreated:Put", f"bench/{k}") for k in names if k.startswith("tenant-00/")]
+                                   + [("s3:ObjectCreated:Copy", f"bench/{d}") for _, d in copies
+                                      if d.startswith("tenant-00/")]
+                                   + [("s3:ObjectCreated:CompleteMultipartUpload", f"bench/{mp_name}")]
+                                   + [("s3:ObjectRemoved:Delete", f"bench/{k}") for k in doomed])
+        t = time.perf_counter()
+        got = rcv.wait(sum(want.values()), 60, "the webhook records of 12a")
+        deliver_s = time.perf_counter() - t
+        if collections.Counter((r["EventName"], r["Key"]) for r in got) != want:
+            raise AssertionError(f"12a: the receiver got {collections.Counter((r['EventName'], r['Key']) for r in got)}"
+                                 f", want {want}")
+        for r in got:
+            obj = r["Records"][0]["s3"]["object"]
+            if r["EventName"].startswith("s3:ObjectCreated:") and \
+                    (obj["size"], obj["eTag"], obj["versionId"]) != heads[obj["key"]]:
+                raise AssertionError(f"12a: the record of {obj['key']} says {obj}, its HEAD {heads[obj['key']]}")
+        listen.wait(lambda recs: len(recs) >= len(created), 60, "the listen stream's ObjectCreated records")
+        seen = collections.Counter(r["Key"] for r in listen.records)
+        if seen != collections.Counter(f"bench/{k}" for k in created):
+            raise AssertionError(f"12a: the listen stream saw {seen}")
+        listen.close()
+        streams.remove(listen)
+        log(f"12a the receiver got exactly the {sum(want.values())} matching records "
+            f"({json.dumps(dict(collections.Counter(e for e, _ in want)))}), each created record with its "
+            f"object's HEAD size, ETag and version id, all in within {deliver_s:.2f} s of the last request; the "
+            f"listen stream got all {len(created)} ObjectCreated records")
+
+        # 12a the spool: the receiver stops, PUTs spool on the first drive.
+        rcv.stop()
+        spool = os.path.join(dirs[0], SYS_DIR, "notify-spool", "webhook")
+        m = client.call("register", seed + 2, n_spool, max_size, "spool", 1)
+        spooled = Traffic(seed + 2, m, max_size, "spool", 1).names
+        client.call("put", spooled, {}, threads)
+        files = [f for f in os.listdir(spool) if f.endswith(".json")]
+        if target.queue.pending() != m or len(files) != m:
+            raise AssertionError(f"12a: with the receiver down {target.queue.pending()} records pending and "
+                                 f"{len(files)} spool files, want {m}")
+        t = time.perf_counter()
+        rcv.start()
+        got = rcv.wait(m, 60, "the spooled records")
+        redeliver_s = time.perf_counter() - t
+        keys = collections.Counter(r["Key"] for r in got)
+        if keys != collections.Counter(f"bench/{k}" for k in spooled) or os.listdir(spool) or target.queue.pending():
+            raise AssertionError(f"12a: after the restart the receiver got {keys}; spool left {os.listdir(spool)}")
+        log(f"12a the receiver down: {m} PUTs left {m} records pending and {m} spool files under the first drive; "
+            f"back up, all {m} arrived once each in {redeliver_s:.2f} s and the spool is empty")
+
+        # 12a expiry: one scanner cycle delivers ObjectRemoved:Expired.
+        request("PUT", "/bench", [("lifecycle", "")], None, EV_LIFECYCLE.encode())
+        expired = [k for k in names if tenant[k] == EV_EXPIRE]
+        node.scanner._sleeper.factor = 0.0  # the throttle's idle time is not the cycle's work
+        t = time.perf_counter()
+        node.scanner.scan_cycle()
+        cycle_s = time.perf_counter() - t
+        got = rcv.wait(len(expired), 60, "the expiry records")
+        if sorted((r["EventName"], r["Key"]) for r in got) != sorted(
+                ("s3:ObjectRemoved:Expired", f"bench/{k}") for k in expired):
+            raise AssertionError(f"12a: the cycle delivered {[(r['EventName'], r['Key']) for r in got]}, want one "
+                                 f"s3:ObjectRemoved:Expired for each of {expired}")
+        log(f"12a a lifecycle expiring {EV_EXPIRE} and one scanner cycle ({cycle_s:.2f} s): one "
+            f"s3:ObjectRemoved:Expired record for each of the {len(expired)} expired objects")
+
+        # 12b operations: the speedtests, /metrics against the codec's stats().
+        _, before = _signed_text(port, f"{ADMIN_PREFIX}/metrics")
+        before = _codec_series(before)
+        ledger: collections.Counter = collections.Counter()
+        report, recs = step("selftest_object", f"12b POST /speedtest/object ({st_size >> 10} KiB objects, "
+                                               f"ramp {json.dumps(st_ramp) if st_ramp else 'the default'})",
+                            lambda: admin("POST", "/speedtest/object", {"size": st_size, **(st_ramp or {})}), 0)
+        ledger.update(recs)
+        if not report["ok"] or len(report["nodes"]) != 1 or report["size"] != st_size:
+            raise AssertionError(f"12b /speedtest/object: {report}")
+        left = [d for d in dirs if os.path.exists(os.path.join(d, SCRATCH_BUCKET))]
+        if left:
+            raise AssertionError(f"12b: the scratch bucket {SCRATCH_BUCKET} is left on {left}")
+        agg = report["aggregate"]
+        log(f"12b object speedtest: best concurrency {report['concurrency']}, PUT {agg['put_gibs']} GiB/s "
+            f"{agg['put_ops_per_s']} ops/s, GET {agg['get_gibs']} GiB/s {agg['get_ops_per_s']} ops/s; ramp "
+            f"{json.dumps(report['ramp'])}; the scratch bucket is gone from every drive [{smi}]")
+        legacy, recs = step("speedtest_legacy", f"12b POST /speedtest (the legacy autotune, {st_size >> 10} KiB)",
+                            lambda: admin("POST", "/speedtest", {"size": st_size, **({"count": 1} if st_ramp else {})}),
+                            0)
+        ledger.update(recs)
+        if not legacy["putSpeedBytesPerSec"] or not legacy["getSpeedBytesPerSec"]:
+            raise AssertionError(f"12b /speedtest: {legacy}")
+        log(f"12b legacy speedtest: PUT {legacy['putSpeedBytesPerSec'] / 2**30:.4f} GiB/s, GET "
+            f"{legacy['getSpeedBytesPerSec'] / 2**30:.4f} GiB/s at concurrency {legacy.get('concurrency', 1)}; ramp "
+            f"{json.dumps([r['concurrency'] for r in legacy.get('ramp', [])])} [{smi}]")
+        st, text = _signed_text(port, f"{ADMIN_PREFIX}/metrics")
+        stats = codec.stats()
+        depths = codec.queue_depths()
+        after = _codec_series(text)
+        want_series = _series_of_stats(stats, depths)
+        if st != 200 or after != want_series:
+            diff = {k: (after.get(k), want_series.get(k)) for k in set(after) | set(want_series)
+                    if after.get(k) != want_series.get(k)}
+            raise AssertionError(f"12b /metrics ({st}): codec series against stats(): {diff}")
+        grew = {k: after[(k, "")] - before.get((k, ""), 0.0) for k in (
+            "minio_tpu_codec_encode_batches_total", "minio_tpu_codec_small_batches_total",
+            "minio_tpu_codec_verify_batches_total", "minio_tpu_codec_recon_batches_total")}
+        if grew["minio_tpu_codec_encode_batches_total"] != ledger["encode-batch"] or \
+                grew["minio_tpu_codec_small_batches_total"] != ledger["encode-batch-small"] or \
+                not ledger["verify-batch"] or grew["minio_tpu_codec_verify_batches_total"] < ledger["verify-batch"] or \
+                grew["minio_tpu_codec_recon_batches_total"] < ledger["reconstruct-batch"]:
+            raise AssertionError(f"12b: /metrics grew {grew} over the speedtests, their records {dict(ledger)}")
+        if "minio_tpu_device_probe_recovery_interval_seconds" in text or "minio_tpu_flight_armed" not in text:
+            raise AssertionError("12b /metrics: a series the port does not render, or the flight series missing")
+        log(f"12b GET /metrics: all {len(after)} minio_tpu_codec_* samples equal the codec's stats() read just after; "
+            f"over the two speedtests the batch counters grew {json.dumps(grew)}, their codec records "
+            f"{json.dumps(dict(ledger))}; {len(text.splitlines())} lines")
+        drive = admin("POST", "/speedtest/drive", {"size": 4 * MiB})
+        net = admin("POST", "/speedtest/net", {"size": MiB, "rounds": 1})
+        last = {k: admin("GET", f"/speedtest/{k}") for k in ("object", "drive", "net")}
+        if not drive["ok"] or sorted(drive["drives"]) != sorted(node.local_drives) or last["drive"] != drive or \
+                last["object"] != report or last["net"] != net:
+            raise AssertionError(f"12b /speedtest/drive {drive}; the GETs of the last results differ")
+        rates = [r["seq_write_bytes_per_s"] for r in drive["drives"].values()]
+        log(f"12b drive probe at 4 MiB on the 16 drives: sequential write {min(rates) / MiB:.0f}-"
+            f"{max(rates) / MiB:.0f} MiB/s; GET /speedtest/{{object,drive,net}} return the last results")
+        ts = admin("GET", "/timeseries")
+        health = admin("GET", "/healthinfo")
+        bw = admin("GET", "/bandwidth")
+        st, kms = client.call("admin", "GET", f"{ADMIN_PREFIX}/kms/status")
+        if not ts["node"]["series"] or len(health["drives"]) != DRIVES or \
+                any(d["state"] != "ok" for d in health["drives"]) or bw != {} or \
+                (st, node.kms is not None) not in ((200, True), (501, False)):
+            raise AssertionError(f"12b: /timeseries {len(ts['node']['series'])} seconds, /healthinfo "
+                                 f"{len(health['drives'])} drives, /bandwidth {bw}, /kms/status {st} {kms}")
+        log(f"12b /timeseries {len(ts['node']['series'])} seconds, /healthinfo {len(health['drives'])} drives ok "
+            f"(cpu {health['cpu'].get('model', '?')}), /bandwidth {bw}, /kms/status {st} {kms}")
+
+        # /trace around n_trace PUTs.
+        trace = _Stream(port, f"{ADMIN_PREFIX}/trace", [])
+        streams.append(trace)
+        k = client.call("register", seed + 3, n_trace, MiB, "trace", EV_TENANTS)
+        traced = Traffic(seed + 3, k, MiB, "trace", EV_TENANTS).names
+        client.call("put", traced, {}, threads)
+        want_paths = {f"/bench/{x}" for x in traced}
+
+        def traced_puts(recs):
+            return {r["path"] for r in recs if r.get("type") == "http" and r.get("method") == "PUT"
+                    and r.get("status") == 200 and r.get("path") in want_paths} == want_paths
+
+        trace.wait(traced_puts, 30, "the traced PUTs")
+        recs = list(trace.records)
+        ids = {r["request_id"] for r in recs if r.get("type") == "http" and r.get("path") in want_paths}
+        trees = [_trace_tree(recs, rid) for rid in ids]
+        trace.close()
+        streams.remove(trace)
+        log(f"12b a /trace stream around {k} PUTs: {len(recs)} records, one http record and one span tree per PUT "
+            f"(roots {sorted({t['root'] for t in trees})}, {sum(t['spans'] for t in trees)} spans)")
+
+        # The flight recorder and update.
+        dump = admin("POST", "/flight/dump", {"note": "chip smoke phase 12"})
+        incident = dump["incident"]["incident"]
+        listing = admin("GET", "/flight")
+        ids = [b["id"] for b in listing["bundles"] if b["incident"] == incident]
+        if len(ids) != 1:
+            raise AssertionError(f"12b GET /flight: {listing['bundles']}, want one bundle of {incident}")
+        bundle = admin("GET", f"/flight/{ids[0]}")
+        if bundle["incident"] != incident or bundle["reason"] != "manual" or "spans" not in bundle:
+            raise AssertionError(f"12b GET /flight/{ids[0]}: {sorted(bundle)}")
+        log(f"12b POST /flight/dump, GET /flight lists {ids[0]}, GET /flight/{{id}} returns it: "
+            f"{len(bundle['spans'])} spans, {len(bundle['timeseries']['series'])} seconds of ops")
+        mirror, stage = os.path.join(base, "mirror"), os.path.join(base, "stage")
+        os.environ["MINIO_TPU_UPDATE_PUBKEY"] = _make_release(mirror)
+        init = os.path.join(os.path.dirname(os.path.abspath(__file__)), "minio_tpu_torch", "__init__.py")
+        before_init = _read(init)
+        up = admin("POST", "/update", None, [("url", f"file://{mirror}"), ("stage-dir", stage)])
+        status = admin("GET", "/update")
+        if up["available"] != "0.6.0" or not os.path.isfile(os.path.join(up["staged"], "minio_tpu_torch",
+                                                                          "__init__.py")) \
+                or _read(init) != before_init or status["version"] != __version__ or not status["pubkey_configured"]:
+            raise AssertionError(f"12b POST /update {up}; GET /update {status}")
+        log(f"12b POST /update of a signed file:// release: 0.6.0 staged under {os.path.relpath(up['staged'], base)}, "
+            f"not applied (the running tree unchanged); GET /update {json.dumps(status)}")
+    finally:
+        for s in streams:
+            s.close()
+        if client is not None:
+            client.close()
+        stop.set()
+        thread.join(10)
+        node.close()
+        Node.close_all()
+        runtime.shutdown_data_plane()
+        rcv.stop()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    if target is not None and target.queue._thread.is_alive():
+        raise AssertionError("12: the webhook target's sender thread outlived the node")
+    if GLOBAL_FLIGHT.fanout is not None or (GLOBAL_FLIGHT._thread is not None and GLOBAL_FLIGHT._thread.is_alive()):
+        raise AssertionError("12: the flight recorder is still armed after the node closed")
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3929,6 +4618,9 @@ def main() -> int:
     kernels = phase_kernels(dev)
     log_phase_end("phases 1-2")
     root = tempfile.mkdtemp(prefix="chip_smoke_")
+    # Flight bundles (armed by every Node build, in this process and in the
+    # server processes it starts) go under the run's root.
+    os.environ.setdefault("MTPU_FLIGHT_DIR", os.path.join(root, "flight"))
     codec = BatchingDeviceCodec(max_batch=64, device=dev)
     tally = Tally()
     rates: dict = {}
@@ -3966,6 +4658,8 @@ def main() -> int:
         log_phase_end("phase 10")
         paths.update(phase_lifecycle(smi, root, tally))
         log_phase_end("phase 11")
+        paths.update(phase_events_ops(smi, root, tally))
+        log_phase_end("phase 12")
     finally:
         tally.uninstall()
         codec.close()

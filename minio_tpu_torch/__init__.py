@@ -16,6 +16,8 @@ its own copies of the host modules it needs. ``python -m minio_tpu_torch
 server <drives>`` boots a server (cli.py).
 """
 
+__version__ = "0.5.0"  # the JAX package's release this port tracks
+
 __all__ = ["ErasureSets", "ServerPools"]
 
 

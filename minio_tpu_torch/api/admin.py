@@ -2,21 +2,24 @@
 
 Role of the reference's admin handlers (cmd/admin-handlers*.go, mounted at
 /minio/admin/v3), mounted at /mtpu/admin/v1; every call is SigV4-signed and
-authorized against the admin:* action namespace. The port serves: /info,
-/service, /config, the users/groups/policies/service-accounts routes (IAM
-only), /chaos, /heal, /perf, /perf/slow, the profiling routes, /toplocks,
-/force-unlock, /inspect, /datausage, /quota, the pool lifecycle routes
-(/pools/status, /pools/attach, /pools/decommission, /pools/rebalance) and
-the remote tier routes (/tiers*); the fan-outs reach every peer through the
-node's NotificationSys. Every other route of the JAX package's admin API is
-registered and answers 501 NotImplemented naming the module it waits for
-(ROADMAP.md, Queue A item 8).
+authorized against the admin:* action namespace. The port serves every
+route of the JAX package's admin API but replication's: /info, /service,
+/config, the users/groups/policies/service-accounts routes (IAM only),
+/chaos, /heal, /perf, /perf/slow, the profiling routes, /toplocks,
+/force-unlock, /inspect, /datausage, /quota, the pool lifecycle routes,
+the remote tier routes (/tiers*), /healthinfo, /bandwidth, the KMS routes,
+/update, /metrics, /timeseries, the speedtests, the flight recorder and
+/trace; the fan-outs reach every peer through the node's NotificationSys.
+The replication and site-replication routes are registered and answer 501
+NotImplemented naming the module they wait for (ROADMAP.md, Queue A item
+8.5).
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import time
 import urllib.parse
 from dataclasses import dataclass
 
@@ -39,25 +42,6 @@ NOT_PORTED_ROUTES: tuple[tuple[str, str, str], ...] = (
     ("POST", "/site-replication/peer/meta", "control/site_replication.py"),
     ("POST", "/site-replication/peer/iam", "control/site_replication.py"),
     ("POST", "/site-replication/peer/install-replication", "control/site_replication.py"),
-    ("GET", "/healthinfo", "control/health.py"),
-    ("GET", "/bandwidth", "control/bandwidth.py"),
-    ("GET", "/kms/status", "control/kms.py (the admin KMS routes)"),
-    ("POST", "/update", "control/update.py"),
-    ("GET", "/update", "control/update.py"),
-    ("GET", "/kms/key/status", "control/kms.py (the admin KMS routes)"),
-    ("GET", "/metrics", "control/metrics.py"),
-    ("POST", "/speedtest", "control/selftest.py"),
-    ("POST", "/speedtest/object", "control/selftest.py"),
-    ("GET", "/speedtest/object", "control/selftest.py"),
-    ("POST", "/speedtest/drive", "control/selftest.py"),
-    ("GET", "/speedtest/drive", "control/selftest.py"),
-    ("POST", "/speedtest/net", "control/selftest.py"),
-    ("GET", "/speedtest/net", "control/selftest.py"),
-    ("GET", "/timeseries", "control/metrics.py"),
-    ("POST", "/flight/dump", "control/flight.py"),
-    ("GET", "/flight", "control/flight.py"),
-    ("GET", "/flight/{id}", "control/flight.py"),
-    ("GET", "/trace", "api/streams.py"),
     ("POST", "/replication/target", "control/replication.py"),
     ("GET", "/replication/target", "control/replication.py"),
     ("DELETE", "/replication/target", "control/replication.py"),
@@ -74,11 +58,16 @@ class AdminContext:
     config: object | None = None
     healmgr: object | None = None
     locker: object | None = None  # this node's LocalLocker (dist/locks.py)
-    # The subsystems of later slices, read by the ported routes where the JAX
-    # package's read them; None until those slices land.
+    # The node's subsystems, read by the routes where the JAX package's read
+    # them; None where the app is built without a node.
     scanner: object | None = None  # DataScanner (usage in /info)
-    metrics: object | None = None  # MetricsSys (memcache stats in /perf)
+    metrics: object | None = None  # MetricsSys (/metrics, memcache stats in /perf)
     notification: object | None = None  # peer fan-out
+    trace: object | None = None  # TraceSys (the /trace stream's hub)
+    bandwidth: object | None = None  # BandwidthMonitor (replica traffic rates)
+    kms: object | None = None  # KMS (kms status / key checks)
+    local_drives: object | None = None  # {path: StorageAPI} for the drive probe
+    node_url: str = "local"  # this node's URL (keys selftest per-node results)
     site_repl: object | None = None  # SiteReplicationSys (site-replication.go)
     tiering: object | None = None  # TierConfigMgr (tier.go)
     bucket_meta: object | None = None  # BucketMetadataSys (quota config)
@@ -167,6 +156,123 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
         if ctx.scanner is None:
             return {}
         return ctx.scanner.usage.summary()
+
+    def h_healthinfo(request, body):
+        from ..control.health import health_info
+
+        return health_info(ctx.layer)
+
+    # -- KMS status (KMSStatusHandler / KMSKeyStatusHandler,
+    # cmd/admin-handlers.go:1267,1305): report the backend and prove the
+    # key works with an encrypt/decrypt roundtrip, as the reference does.
+
+    def _kms_key_check(key_id: str) -> dict:
+        """Both err fields are always present and name the stage that
+        actually failed (generate/encrypt vs decrypt)."""
+        out = {"key-id": key_id or "default", "encryption-err": "", "decryption-err": ""}
+        try:
+            dk = ctx.kms.generate_key(key_id)
+        except Exception as e:  # noqa: BLE001 - report, never 500
+            out["encryption-err"] = str(e)
+            return out
+        try:
+            plain = ctx.kms.decrypt_key(dk.key_id, dk.ciphertext)
+            if plain != dk.plaintext:
+                out["decryption-err"] = "roundtrip mismatch"
+        except Exception as e:  # noqa: BLE001
+            out["decryption-err"] = str(e)
+        return out
+
+    def h_kms_status(request, body):
+        if ctx.kms is None:
+            raise S3Error("NotImplemented", "no KMS configured")
+        return {**ctx.kms.stat(), "key-check": _kms_key_check("")}
+
+    def h_update(request, body):
+        # ServerUpdate role (cmd/admin-handlers.go ServerUpdateHandler):
+        # check + verify + STAGE only. Swapping the live tree out from
+        # under a running interpreter is a CLI decision
+        # (`python -m minio_tpu_torch update --apply` + restart), not an HTTP side effect.
+        from ..control import update as upd
+
+        url = request.rel_url.query.get("url", "")
+        if not url:
+            raise S3Error("InvalidRequest", "url query parameter required")
+        import os as os_mod
+        import tempfile
+
+        stage = request.rel_url.query.get(
+            "stage-dir", os_mod.path.join(tempfile.gettempdir(), "minio_tpu-updates")
+        )
+        try:
+            info = upd.check_update(url)
+            os_mod.makedirs(stage, exist_ok=True)
+            staged = upd.download_and_stage(info, stage)
+        except upd.UpdateError as e:
+            raise S3Error("XMinioAdminUpdateApplyFailure", str(e))
+        return {
+            **upd.update_status(),
+            "available": info.version,
+            "staged": staged,
+            "note": "apply via `python -m minio_tpu_torch update --apply` + restart",
+        }
+
+    def h_update_status(request, body):
+        from ..control import update as upd
+
+        return upd.update_status()
+
+    def h_kms_key_status(request, body):
+        if ctx.kms is None:
+            raise S3Error("NotImplemented", "no KMS configured")
+        return _kms_key_check(request.rel_url.query.get("key-id", ""))
+
+    # -- inspect raw storage files (InspectDataHandler,
+    # cmd/admin-handlers.go:2198): the same file from EVERY drive, zipped,
+    # so operators can diff xl.meta copies across the set. ------------------
+
+    def h_inspect(request, body):
+        import io
+        import zipfile
+
+        q = request.rel_url.query
+        volume, fname = q.get("volume", ""), q.get("file", "")
+        if not volume:
+            raise S3Error("InvalidBucketName")
+        if not fname:
+            raise S3Error("InvalidRequest", "file is required")
+        # Bounded per-copy read: inspect targets metadata-sized files
+        # (xl.meta); a multi-GiB shard file must not be buffered whole from
+        # 16 drives at once. Oversized copies are truncated and marked.
+        CAP = 32 << 20
+        buf = io.BytesIO()
+        found = 0
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
+            for pi, pool in enumerate(ctx.layer.pools):
+                for di, d in enumerate(pool.disks):
+                    if d is None:
+                        continue
+                    try:
+                        size = d.stat_file(volume, fname)
+                        raw = (
+                            d.read_all(volume, fname)
+                            if size <= CAP
+                            else d.read_file(volume, fname, 0, CAP)
+                        )
+                    except oerr.StorageError:
+                        continue
+                    found += 1
+                    name = f"pool{pi}/disk{di}/{volume}/{fname}"
+                    if size > CAP:
+                        name += ".truncated"
+                    z.writestr(name, raw)
+        if not found:
+            raise S3Error("NoSuchKey", resource=f"/{volume}/{fname}")
+        return web.Response(
+            body=buf.getvalue(),
+            content_type="application/zip",
+            headers={"Content-Disposition": 'attachment; filename="inspect.zip"'},
+        )
 
     # -- bucket quota (Put/GetBucketQuotaConfigHandler,
     # cmd/admin-bucket-handlers.go:43,83) ------------------------------------
@@ -590,6 +696,10 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
         # (the reference signals itself, cmd/service.go).
         return {"ok": True, "action": action}
 
+    def h_metrics(request, body):
+        if ctx.metrics is None:
+            raise S3Error("NotImplemented")
+        return web.Response(text=ctx.metrics.render(), content_type="text/plain")
 
     def h_perf(request, body):
         """Performance attribution surface (the always-on stage ledger):
@@ -781,6 +891,369 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
         return out
 
 
+    def h_speedtest(request, body):
+        """Autotuning self-benchmark (cmd/utils.go:976 speedTest): ramp
+        concurrency, doubling while aggregate throughput keeps improving,
+        and report the best step plus the whole ramp."""
+        doc = json.loads(body) if body else {}
+        size = int(doc.get("size", 1 << 20))
+        count = int(doc.get("count", 0))  # >0 = fixed serial legacy mode
+        autotune = bool(doc.get("autotune", count == 0))
+        import os as _os
+        from concurrent.futures import ThreadPoolExecutor
+
+        payload = _os.urandom(size)
+        bucket = ".minio_tpu.sys"
+        layer = ctx.layer.pools[0]
+
+        def round_at(n_ops: int, workers: int):
+            names = [f"speedtest/w{workers}-{i}" for i in range(n_ops)]
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda n: layer.put_object(bucket, n, payload), names))
+                put_t = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                list(pool.map(lambda n: layer.get_object(bucket, n), names))
+                get_t = time.perf_counter() - t0
+            for n in names:
+                try:
+                    layer.delete_object(bucket, n)
+                except oerr.StorageError:
+                    pass
+            total = size * n_ops
+            return (total / put_t if put_t else 0.0, total / get_t if get_t else 0.0)
+
+        if not autotune:
+            # Legacy fixed-count mode stays SERIAL (cross-version baselines).
+            put_bps, get_bps = round_at(max(count, 1), workers=1)
+            return {"putSpeedBytesPerSec": put_bps, "getSpeedBytesPerSec": get_bps}
+
+        ramp = []
+        best = (0.0, 0.0, 0)
+        concurrency = 4
+        while concurrency <= 32:
+            put_bps, get_bps = round_at(concurrency * 2, workers=concurrency)
+            ramp.append(
+                {"concurrency": concurrency, "putSpeedBytesPerSec": put_bps,
+                 "getSpeedBytesPerSec": get_bps}
+            )
+            if put_bps + get_bps > best[0] + best[1]:
+                prev_sum = best[0] + best[1]
+                best = (put_bps, get_bps, concurrency)
+                # Keep doubling only while the gain is material (the
+                # reference uses a ~2.5% improvement bar).
+                if prev_sum and (put_bps + get_bps) < prev_sum * 1.025:
+                    break
+            else:
+                break
+            concurrency *= 2
+        return {
+            "putSpeedBytesPerSec": best[0],
+            "getSpeedBytesPerSec": best[1],
+            "concurrency": best[2],
+            "ramp": ramp,
+        }
+
+    # -- live-cluster self-measurement (control/selftest.py; the reference's
+    # speedtest.go / perf-drive.go / perf-net.go admin probes). POST runs a
+    # probe NOW and returns its report; GET re-reads the last completed
+    # report without re-running (a speedtest is expensive). ------------------
+
+    def _selftest():
+        from ..control import selftest
+
+        return selftest
+
+    def _node_url():
+        return getattr(ctx, "node_url", None) or "local"
+
+    def h_speedtest_object(request, body):
+        doc = json.loads(body) if body else {}
+        return _selftest().object_speedtest(
+            ctx.layer,
+            peers=_peer_clients(),
+            node_url=_node_url(),
+            size=int(doc.get("size", 0)) or None,
+            start=int(doc.get("concurrency", 0)) or None,
+            max_concurrency=int(doc.get("max_concurrency", 0)) or None,
+        )
+
+    def h_speedtest_drive(request, body):
+        drives = getattr(ctx, "local_drives", None)
+        if not drives:
+            raise S3Error("NotImplemented", "no local drives on this node")
+        doc = json.loads(body) if body else {}
+        return _selftest().drive_probe(
+            drives,
+            size=int(doc.get("size", 0)) or None,
+            files=int(doc.get("files", 4)),
+            rand_reads=int(doc.get("rand_reads", 16)),
+        )
+
+    def h_speedtest_net(request, body):
+        doc = json.loads(body) if body else {}
+        return _selftest().netperf(
+            _peer_clients(),
+            node_url=_node_url(),
+            size=int(doc.get("size", 0)) or None,
+            rounds=int(doc.get("rounds", 4)),
+        )
+
+    def _h_speedtest_last(kind: str):
+        def h(request, body):
+            last = _selftest().last_result(kind)
+            if last is None:
+                raise S3Error(
+                    "InvalidArgument", f"no completed {kind} probe; POST to run one"
+                )
+            return last
+
+        return h
+
+    def h_timeseries(request, body):
+        """Always-on ops/s time series (control/perf.py OpsTimeSeries):
+        per-second request count / errors / bytes / p99 per op class over
+        the ring window. ?cluster=1 merges every peer's ring second-by-
+        second; ?horizon=N also reports trailing per-class rates."""
+        from ..control.perf import GLOBAL_PERF, merge_timeseries, summarize_timeseries
+
+        q = request.rel_url.query
+        try:
+            horizon = int(q.get("horizon", "60"))
+        except ValueError:
+            raise S3Error("InvalidArgument", "horizon must be an integer")
+        snap = GLOBAL_PERF.timeseries.snapshot()
+        out: dict = {
+            "window_s": snap["window_s"],
+            "node": summarize_timeseries(snap),
+            "rates": GLOBAL_PERF.timeseries.rates(horizon_s=horizon),
+        }
+        if q.get("cluster", "") in ("1", "true"):
+            snaps = [snap]
+            peers = {}
+            for p in _peer_clients():
+                try:
+                    r = p.timeseries_snapshot(timeout=5.0)
+                    snaps.append(r.get("timeseries", {}))
+                    peers[p.url] = {"ok": True}
+                except oerr.StorageError as e:
+                    peers[p.url] = {"ok": False, "error": str(e)}
+            out["cluster"] = summarize_timeseries(merge_timeseries(snaps))
+            out["peers"] = peers
+        return out
+
+    # -- flight recorder (control/flight.py): the always-on black box. ------
+
+    def h_flight_dump(request, body):
+        """Manual trigger: capture a bundle NOW on this node and fan the
+        incident out so every peer freezes the same wall-clock window."""
+        from ..control.flight import GLOBAL_FLIGHT
+
+        doc = json.loads(body) if body else {}
+        incident = GLOBAL_FLIGHT.trigger(
+            "manual", detail={"via": "admin", **({"note": doc["note"]} if doc.get("note") else {})}
+        )
+        return {"ok": True, "incident": incident}
+
+    def h_flight_list(request, body):
+        from ..control.flight import GLOBAL_FLIGHT
+
+        q = request.rel_url.query
+        out: dict = {"bundles": GLOBAL_FLIGHT.list(), "stats": GLOBAL_FLIGHT.stats()}
+        if q.get("cluster", "") in ("1", "true"):
+            peers = {}
+            for p in _peer_clients():
+                try:
+                    r = p.flight_list(timeout=5.0)
+                    peers[p.url] = {"ok": True, "bundles": r.get("bundles", [])}
+                except oerr.StorageError as e:
+                    peers[p.url] = {"ok": False, "error": str(e)}
+            out["peers"] = peers
+        return out
+
+    def h_flight_get(request, body):
+        """Fetch one bundle by id; ?cluster=1 merges every node's bundle for
+        the same incident so one GET shows the correlated cluster view."""
+        from ..control.flight import GLOBAL_FLIGHT
+
+        bundle_id = request.match_info["id"]
+        bundle = GLOBAL_FLIGHT.get(bundle_id)
+        q = request.rel_url.query
+        if q.get("cluster", "") not in ("1", "true"):
+            if bundle is None:
+                raise S3Error("NoSuchKey", f"no flight bundle {bundle_id!r}")
+            return bundle
+        out: dict = {"id": bundle_id, "local": bundle, "peers": {}}
+        for p in _peer_clients():
+            try:
+                r = p.flight_get(bundle_id, timeout=10.0)
+                out["peers"][p.url] = {"ok": True, "bundle": r.get("bundle")}
+            except oerr.StorageError as e:
+                out["peers"][p.url] = {"ok": False, "error": str(e)}
+        if bundle is None and not any(
+            v.get("bundle") for v in out["peers"].values() if v.get("ok")
+        ):
+            raise S3Error("NoSuchKey", f"no flight bundle {bundle_id!r} on any node")
+        return out
+
+    # -- profiling (admin-handlers.go:511-716 role): start broadcasts to
+    # every peer; stop collects one dump per node -- plain text single-node,
+    # a zip with per-node entries in a cluster. The profiler samples
+    # sys._current_frames() from its own thread (control/profiler.py):
+    # cProfile's per-thread hook enabled inside a request handler would
+    # profile nothing but that handler's executor thread. -------------------
+
+    _profiler: dict = {}
+
+    def _peer_clients():
+        n = getattr(ctx, "notification", None)
+        return list(getattr(n, "peers", []) or [])
+
+    def h_profile_start(request, body):
+        from ..control.profiler import SamplingProfiler
+
+        if "p" in _profiler:
+            raise S3Error("InvalidArgument", "profiling already running")
+        p = SamplingProfiler()
+        p.start()
+        _profiler["p"] = p
+        started = ["local"]
+        for peer in _peer_clients():
+            try:
+                if peer.profile_start().get("ok"):
+                    started.append(peer.url)
+            except oerr.StorageError:
+                continue
+        return {"ok": True, "nodes": started}
+
+    def h_profile_stop(request, body):
+        import io
+
+        p = _profiler.pop("p", None)
+        if p is None:
+            raise S3Error("InvalidArgument", "profiling not running")
+        p.stop()
+        text = p.report()
+        peers = _peer_clients()
+        if not peers:
+            return web.Response(text=text, content_type="text/plain")
+        import zipfile
+
+        zbuf = io.BytesIO()
+        with zipfile.ZipFile(zbuf, "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr("local/profile.txt", text)
+            for peer in peers:
+                try:
+                    peer_text = peer.profile_stop().get("text", "")
+                except oerr.StorageError:
+                    peer_text = ""
+                safe = peer.url.replace("://", "_").replace(":", "_").replace("/", "_")
+                z.writestr(f"{safe}/profile.txt", peer_text)
+        return web.Response(
+            body=zbuf.getvalue(),
+            content_type="application/zip",
+            headers={"Content-Disposition": 'attachment; filename="profiles.zip"'},
+        )
+
+    def h_profile(request, body):
+        """Continuous profiling plane (control/profiler.py GLOBAL_PROFILER):
+        rotating windows of role-aggregated stacks, the calibrated GIL-load
+        gauge, and the copy ledger -- always on, no start/stop ceremony.
+
+        ?collapsed=1 downloads flamegraph collapsed-stack text;
+        ?summary=1 returns the compact report block (what loadgen embeds);
+        ?cluster=1 merges every peer's windows/copy ledger into one view
+        (gil_load stays per-node: GIL pressure doesn't sum across
+        interpreters); ?top=N bounds stacks per window (default 40)."""
+        from ..control.profiler import GLOBAL_PROFILER, merge_profiles
+
+        q = request.rel_url.query
+        try:
+            top = int(q.get("top", "40"))
+        except ValueError:
+            raise S3Error("InvalidArgument", "top must be an integer")
+
+        if q.get("collapsed", "") in ("1", "true"):
+            s = GLOBAL_PROFILER.sampler
+            return web.Response(
+                text=s.collapsed(top=top) if s is not None else "",
+                content_type="text/plain",
+                headers={
+                    "Content-Disposition": 'attachment; filename="profile.collapsed"'
+                },
+            )
+        if q.get("summary", "") in ("1", "true"):
+            return GLOBAL_PROFILER.summary()
+
+        out = GLOBAL_PROFILER.snapshot(top=top)
+        if q.get("cluster", "") in ("1", "true"):
+            snaps = [out]
+            peers = {}
+            for peer in _peer_clients():
+                try:
+                    r = peer.profile_snapshot(timeout=10.0)
+                    snaps.append(r.get("profile", {}))
+                    peers[peer.url] = {"ok": True}
+                except oerr.StorageError as e:
+                    peers[peer.url] = {"ok": False, "error": str(e)}
+            return {"node": out, "cluster": merge_profiles(snaps), "peers": peers}
+        return out
+
+    def h_bandwidth(request, body):
+        """Cluster-wide per-target replication bandwidth limits + observed
+        rates (admin-handlers.go:1935 BandwidthMonitor aggregates across
+        nodes): every node throttles its own replica traffic, so rates sum
+        and limits merge across peer reports."""
+        # The node's monitor; replication (Queue A item 8.5) feeds it.
+        if ctx.bandwidth is None:
+            raise S3Error("NotImplemented")
+        bucket = request.rel_url.query.get("bucket", "")
+        merged = ctx.bandwidth.report(bucket)
+        for peer in _peer_clients():
+            try:
+                rep = peer.bandwidth(bucket)
+            except oerr.StorageError:
+                continue
+            for b, targets in rep.items():
+                for arn, row in targets.items():
+                    dst = merged.setdefault(b, {}).setdefault(
+                        arn,
+                        {"limitInBytesPerSecond": 0, "currentBandwidthInBytesPerSecond": 0.0},
+                    )
+                    dst["limitInBytesPerSecond"] = max(
+                        dst["limitInBytesPerSecond"], row.get("limitInBytesPerSecond", 0)
+                    )
+                    dst["currentBandwidthInBytesPerSecond"] = round(
+                        dst["currentBandwidthInBytesPerSecond"]
+                        + row.get("currentBandwidthInBytesPerSecond", 0.0),
+                        1,
+                    )
+        return merged
+
+    # -- trace streaming (admin-handlers.go:1103 role) -----------------------
+
+    async def h_trace(request: web.Request, body):
+        """Cluster-wide trace stream: local hub merged with every peer's
+        /trace stream (admin-handlers.go:1103-1166 + peer-rest-server.go:985
+        behavior), on a dedicated bridge thread per watcher instead of
+        parking a shared executor worker."""
+        if ctx.trace is None:
+            raise S3Error("NotImplemented")
+        from .streams import stream_hub_response
+
+        peers = getattr(ctx, "notification", None)
+        return await stream_hub_response(
+            request,
+            ctx.trace.hub,
+            json.dumps,
+            peer_streams=(
+                [p.trace_stream for p in peers.peers]
+                if peers is not None and getattr(peers, "peers", None)
+                else None
+            ),
+            content_type="application/x-ndjson",
+        )
+
     def not_ported(module: str):
         def h(request, body):
             raise S3Error(
@@ -836,6 +1309,25 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
     app.router.add_delete("/tiers/{name}", handler(h_tier_remove))
     app.router.add_put("/tiers/{name}/creds", handler(h_tier_edit))
     app.router.add_get("/tiers/stats", handler(h_tier_stats))
+    app.router.add_get("/healthinfo", handler(h_healthinfo))
+    app.router.add_get("/bandwidth", handler(h_bandwidth))
+    app.router.add_get("/kms/status", handler(h_kms_status))
+    app.router.add_post("/update", handler(h_update))
+    app.router.add_get("/update", handler(h_update_status))
+    app.router.add_get("/kms/key/status", handler(h_kms_key_status))
+    app.router.add_get("/metrics", handler(h_metrics))
+    app.router.add_post("/speedtest", handler(h_speedtest))
+    app.router.add_post("/speedtest/object", handler(h_speedtest_object))
+    app.router.add_get("/speedtest/object", handler(_h_speedtest_last("object")))
+    app.router.add_post("/speedtest/drive", handler(h_speedtest_drive))
+    app.router.add_get("/speedtest/drive", handler(_h_speedtest_last("drive")))
+    app.router.add_post("/speedtest/net", handler(h_speedtest_net))
+    app.router.add_get("/speedtest/net", handler(_h_speedtest_last("net")))
+    app.router.add_get("/timeseries", handler(h_timeseries))
+    app.router.add_post("/flight/dump", handler(h_flight_dump))
+    app.router.add_get("/flight", handler(h_flight_list))
+    app.router.add_get("/flight/{id}", handler(h_flight_get))
+    app.router.add_get("/trace", handler(h_trace, stream=True))
     for method, path, module in NOT_PORTED_ROUTES:
         app.router.add_route(method, path, handler(not_ported(module)))
     return app

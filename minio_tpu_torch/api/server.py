@@ -15,8 +15,10 @@ same routing, handlers, admission gate, CORS, RFC 7232 conditionals,
 streaming PUT and streaming GET plan, with the same bytes on the wire and
 on the drives, and the same instrumentation hooks: the request root span
 and its child spans, the ops/s ring, the degrade records, the copy-ledger
-hops and GLOBAL_LOGGER. The routes whose modules are not ported yet answer
-NotImplemented from `_not_ported` (ROADMAP.md, Queue A item 8).
+hops, GLOBAL_LOGGER and the bucket events of `notifier` (control/events.py,
+with ListenNotification over api/streams.py). The routes whose modules are
+not ported yet answer NotImplemented from `_not_ported` (ROADMAP.md, Queue
+A item 8).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import base64
 import contextlib
 import datetime
 import hashlib
+import json
 import logging
 import re
 import secrets
@@ -67,10 +70,8 @@ _log = logging.getLogger(__name__)
 
 def _not_ported(route: str) -> S3Error:
     """The one answer of every route whose module this slice does not port
-    (ROADMAP.md, Queue A item 8): "sts" (api/sts.py), "listen"
-    (control/events.py, api/streams.py) and "select" (s3select).
-    The error is the JAX front's bare NotImplemented, so a route that
-    answers it there too (listen without a notifier) reads the same."""
+    (ROADMAP.md, Queue A item 8): "sts" (api/sts.py) and "select"
+    (s3select). The error is the JAX front's bare NotImplemented."""
     _log.debug("route not ported: %s", route)
     return S3Error("NotImplemented")
 
@@ -104,6 +105,7 @@ def _xml(content: str, status: int = 200) -> web.Response:
 
 def delete_bucket_with_hooks(
     layer, bucket: str, *, bucket_meta=None, notification=None, site_repl=None,
+    notifier=None,
 ) -> None:
     """Bucket delete plus every cache/replication hook, in one place for
     the S3 handler AND the console (a hook added to only one path would
@@ -113,14 +115,17 @@ def delete_bucket_with_hooks(
       * peer reload — peers' bucket-meta AND bucket-existence caches must
         drop NOW, not after their TTL window, or they keep accepting PUTs
         into the deleted namespace;
-      * site replication fan-out.
-    (The JAX front also clears the local event rules here; events are not
-    ported yet.)"""
+      * LOCAL notifier rules — the peer broadcast excludes this node, and
+        stale rules would fire the old event config if the bucket is ever
+        recreated here;
+      * site replication fan-out."""
     layer.delete_bucket(bucket)
     if bucket_meta is not None:
         bucket_meta.delete(bucket)  # its on_change hook broadcasts to peers
     elif notification is not None:
         notification.reload_bucket_meta_all(bucket)
+    if notifier is not None:
+        notifier.set_bucket_rules_from_xml(bucket, b"")
     if site_repl is not None and getattr(site_repl, "enabled", False):
         site_repl.on_bucket_delete(bucket)
 
@@ -374,6 +379,7 @@ class S3Server:
         self.app.router.add_route("*", "/{tail:.*}", self._entry)
         # Hooks filled in by the control plane (events, metrics, trace).
         self.on_event = None
+        self.notifier = None
         self.metrics = None
         self.trace = None
         self.logger = None
@@ -1076,6 +1082,7 @@ class S3Server:
             bucket_meta=self.bucket_meta,
             notification=self.peer_notification,
             site_repl=self.site_repl,
+            notifier=self.notifier,
         )
         return web.Response(status=204)
 
@@ -1194,6 +1201,8 @@ class S3Server:
                 "replication config is managed by site replication",
             )
         self.bucket_meta.update(bucket, **{field: body.decode() if body else ""})
+        if field == "notification_xml" and self.notifier is not None:
+            self.notifier.set_bucket_rules_from_xml(bucket, body)
         if field != "replication_xml":
             # replication config is per-site (it points at this site's
             # peers); everything else mirrors across sites.
@@ -1323,8 +1332,42 @@ class S3Server:
 
     async def _listen_notification(self, request: web.Request, bucket: str) -> web.StreamResponse:
         """Live NDJSON event stream (ListenNotificationHandler,
-        cmd/listen-notification-handlers.go:31): not ported yet."""
-        raise _not_ported("listen")
+        cmd/listen-notification-handlers.go:31): merges the local listen hub
+        with every peer's /listen stream (the reference subscribes peers via
+        peer REST), filters by bucket / prefix / suffix / event-name
+        patterns, and writes one JSON record per event until the client
+        disconnects. Slow consumers drop events rather than block publishers
+        (the reference's non-blocking send into a bounded channel)."""
+        if self.notifier is None:
+            raise S3Error("NotImplemented")
+        from ..control.events import Rule
+        from .streams import stream_hub_response
+
+        q = request.rel_url.query
+        names = [v for v in q.getall("events", []) if v] or ["s3:*"]
+        rule = Rule(events=names, prefix=q.get("prefix", ""), suffix=q.get("suffix", ""))
+
+        def to_line(record) -> str | None:
+            recs = record.get("Records") or [{}]
+            s3info = recs[0].get("s3", {})
+            ev_bucket = s3info.get("bucket", {}).get("name", "")
+            ev_key = s3info.get("object", {}).get("key", "")
+            ev_name = record.get("EventName", "")
+            if bucket and ev_bucket and ev_bucket != bucket:
+                return None
+            if not rule.matches(ev_name, ev_key):
+                return None
+            return json.dumps(record)
+
+        peers = self.peer_notification
+        return await stream_hub_response(
+            request,
+            self.notifier.listen_hub,
+            to_line,
+            peer_streams=(
+                [p.listen_stream for p in peers.peers] if peers is not None else None
+            ),
+        )
 
 
     def _list_multipart_uploads(self, bucket: str, q) -> web.Response:
@@ -2732,8 +2775,27 @@ class S3Server:
                 GLOBAL_LOGGER.error(
                     f"replication hook failed: {event_name} {bucket}/{oi.name}", exc=e
                 )
-        # (The JAX front also emits a bucket notification event here;
-        # events are not ported yet.)
+        if self.notifier is not None:
+            from ..control.events import Event
+
+            try:
+                self.notifier.emit(
+                    Event(
+                        name=event_name,
+                        bucket=bucket,
+                        object_name=oi.name,
+                        etag=oi.etag,
+                        # Event consumers see S3 semantics: the object's
+                        # logical size, not the stored transformed form.
+                        size=_display_size(oi),
+                        version_id=oi.version_id,
+                        region=self.region,
+                    )
+                )
+            except Exception as e:  # noqa: BLE001 - notification must not fail the op
+                GLOBAL_LOGGER.error(
+                    f"event notification failed: {event_name} {bucket}/{oi.name}", exc=e
+                )
         if self.on_event is not None:
             try:
                 self.on_event(event_name, bucket, oi)

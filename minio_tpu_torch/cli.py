@@ -14,6 +14,7 @@ Usage:
     python -m minio_tpu_torch server --device cpu /tmp/disk{1...4}
     python -m minio_tpu_torch server --url http://10.0.0.1:9000 \
         http://10.0.0.{1...4}:9000/mnt/disk{1...16}
+    python -m minio_tpu_torch update file:///mirror [--apply]
 
 Every node of a cluster gets the same ordered endpoint list and its own
 ``--url``; endpoints on other nodes are reached over storage REST.
@@ -55,6 +56,8 @@ _ELLIPSIS = re.compile(r"\{(\d+)\.\.\.(\d+)\}")
 # Commands and modes whose modules the port does not have yet: each exits 2
 # naming the module it waits for (ROADMAP.md, Queue A item 8).
 _NOT_PORTED_EXIT = 2
+# Seconds a SIGTERMed server waits for its scanner to reach its next object.
+SCANNER_GRACE_S = 10.0
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -317,10 +320,22 @@ def serve(argv: list[str]) -> int:
         node.scanner.start()
     while not stop_evt.is_set():
         time.sleep(0.2)
-    node.scanner.stop()
+    # The scanner's cycle is abandoned, as the reference's server exits
+    # without waiting for its scanner: the loop gets a short grace to reach
+    # its next object. One still inside a call after it is logged with its
+    # stack and left behind, and the process ends without joining the
+    # drive-I/O workers that call may hold.
+    busy = not node.scanner.stop(timeout=SCANNER_GRACE_S)
+    if busy:
+        _log(a.quiet, a.json, msg="scanner still busy at shutdown", grace_s=SCANNER_GRACE_S,
+             stack=node.scanner.stack())
     node.close()
     shutdown_data_plane(node.codec)
     t.join(5)
+    if busy:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     return 0
 
 
@@ -393,9 +408,51 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "gateway":
         return _not_ported("`gateway`", "object/gateway.py")
     if cmd == "update":
-        return _not_ported("`update`", "control/update.py")
-    print(f"unknown command {cmd!r}; supported: server", file=sys.stderr)
+        return update_cmd(rest)
+    print(f"unknown command {cmd!r}; supported: server, update", file=sys.stderr)
     return 2
+
+
+def update_cmd(argv: list[str]) -> int:
+    """`python -m minio_tpu_torch update <base-url>`: check + verify + stage
+    a release (cmd/update.go role). Applies only with --apply; otherwise it
+    stages and prints what it would do — updates should be two-phase on
+    servers. The release must carry a minio_tpu_torch/ tree: --apply swaps
+    this package's directory, not the JAX package's."""
+    p = argparse.ArgumentParser(prog="minio_tpu_torch update")
+    p.add_argument("url", help="release base URL (https:// or file:// mirror)")
+    p.add_argument("--stage-dir", default=os.path.expanduser("~/.minio_tpu/updates"))
+    p.add_argument("--apply", action="store_true", help="swap the running tree")
+    p.add_argument(
+        "--allow-unsigned", action="store_true",
+        help="accept a release without a signature (NOT for production)",
+    )
+    a = p.parse_args(argv)
+    from .control import update as upd
+
+    try:
+        info = upd.check_update(a.url, allow_unsigned=a.allow_unsigned)
+        print(f"release: {info.version} sha256={info.sha256[:16]}...")
+        os.makedirs(a.stage_dir, exist_ok=True)
+        staged = upd.download_and_stage(info, a.stage_dir)
+        print(f"staged: {staged}")
+        if a.apply:
+            # Swap the PACKAGE directory only: the grandparent would be
+            # site-packages (or the repo root) and swapping that would
+            # discard every other installed package.
+            install = os.path.dirname(os.path.abspath(__file__))
+            staged_pkg = os.path.join(staged, "minio_tpu_torch")
+            if not os.path.isdir(staged_pkg):
+                print("update failed: release has no minio_tpu_torch/ tree", file=sys.stderr)
+                return 1
+            backup = upd.apply_staged(staged_pkg, install)
+            print(f"applied; previous tree at {backup}. Restart to load {info.version}.")
+        else:
+            print("not applied (pass --apply to swap the install tree)")
+        return 0
+    except upd.UpdateError as e:
+        print(f"update failed: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -11,15 +11,20 @@ A copy of the JAX package's control/scanner.py, with the same RNG seed, so
 both packages sample the same objects for the deep check. The deep check
 heals through the layer's codec (on the card, the CUDA kernels), and a cycle
 started before any codec is installed raises (`rebalance.require_codec`).
-The event notifier (control/events.py) is not ported yet (ROADMAP.md,
-Queue A item 8.3): `notifier` stays None and expiry emits no event.
+An expiry emits s3:ObjectRemoved:Expired to the node's event notifier
+(control/events.py), as the JAX scanner does. One departure: a stopped
+scanner abandons the cycle in flight at its next object (the JAX cycle
+walks to its end, which can outlast stop()'s bounded join and so a node's
+shutdown; ROADMAP.md, Queue C item 7).
 """
 
 from __future__ import annotations
 
 import random
+import sys
 import threading
 import time
+import traceback
 
 from ..storage.xlmeta import XLMeta
 from ..utils import errors
@@ -48,7 +53,7 @@ class DataScanner:
         self,
         layer,
         bucket_meta=None,
-        notifier=None,  # EventNotifier: None until Queue A item 8.3 (events)
+        notifier=None,
         cycle_seconds: float = 60.0,
         heal_sample: int = HEAL_SAMPLE,
         leader_lock=None,
@@ -83,12 +88,27 @@ class DataScanner:
         self._thread = threading.Thread(target=self._loop, daemon=True, name="data-scanner")
         self._thread.start()
 
-    def stop(self) -> None:
+    def stop(self, timeout: float = 30.0) -> bool:
+        """Ask the loop to end and wait at most `timeout` s for it; returns
+        whether it has ended. A cycle in flight ends at its next object; a
+        thread still inside one object's call after the wait (a peer call,
+        a lock round) is a daemon left to the process's exit, and a later
+        stop() does not wait for it again."""
+        asked = self._stop.is_set()
         self._stop.set()
-        if self._thread is not None:
-            # A cycle in flight finishes its current object between sleeper
-            # steps; bounded join keeps teardown from racing a live walk.
-            self._thread.join(30.0)
+        t = self._thread
+        if t is None:
+            return True
+        if not asked:
+            t.join(timeout)
+        return not t.is_alive()
+
+    def stack(self) -> str:
+        """The loop thread's current stack, or "" when it is not running:
+        what a shutdown logs when the thread outlives stop()'s wait."""
+        t = self._thread
+        frame = sys._current_frames().get(t.ident) if t is not None and t.is_alive() else None
+        return "".join(traceback.format_stack(frame)) if frame is not None else ""
 
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -118,6 +138,8 @@ class DataScanner:
                 except errors.StorageError:
                     continue
                 for name, raw in walker:
+                    if self._stop.is_set():
+                        return  # stopping: abandon the cycle, publish nothing
                     t0 = time.perf_counter()
                     try:
                         meta = XLMeta.from_bytes(raw)
@@ -216,8 +238,12 @@ class DataScanner:
                     self.tiering.journal_delete(fi.metadata)
             with self._stats_lock:
                 self.objects_expired += 1
-            # The JAX scanner emits s3:ObjectRemoved:Expired to its notifier
-            # here; the port's events wait for Queue A item 8.3.
+            if self.notifier is not None:
+                from .events import Event
+
+                self.notifier.emit(
+                    Event(name="s3:ObjectRemoved:Expired", bucket=bucket, object_name=name)
+                )
         except errors.StorageError:
             pass
 

@@ -52,6 +52,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace {
@@ -275,6 +276,24 @@ rs_gf_apply_kernel(const uint8_t* __restrict__ x, long long x_bstride,
   }
 }
 
+// The kernel's dynamic shared memory limit is an attribute of the function,
+// shared by every host thread. Threads launching with different R need
+// different amounts: the limit only ever grows (per device, under a lock), so
+// no thread lowers it between another's check and launch.
+constexpr int kMaxDevices = 64;
+std::mutex g_smem_mutex;
+size_t g_smem_granted[kMaxDevices] = {};
+
+cudaError_t grant_smem(int device, size_t smem) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_smem_mutex);
+  if (smem <= g_smem_granted[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(rs_gf_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err == cudaSuccess) g_smem_granted[device] = smem;
+  return err;
+}
+
 }  // namespace
 
 // x: [B, K, S] u8 with rows contiguous (any alignment), batch stride x_bstride
@@ -290,8 +309,7 @@ extern "C" int rs_gf_apply_launch(const uint8_t* x, long long x_bstride, const u
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(rs_gf_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) err = grant_smem(device, smem);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rs_gf_apply_kernel, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);

@@ -11,11 +11,11 @@ and this node is the leader = owner of the first endpoint), assembles the
 erasure pools and the control plane, and serves S3 + admin + storage, lock
 and peer REST on one port.
 
-The pool manager (attach, decommission, rebalance), the data scanner and
-TierConfigMgr are wired as the JAX node wires them. Left for later, each at
-its site below: disk/memory caches, metrics, event targets, replication,
-site replication, the flight recorder, the console and the etcd IAM store
-(ROADMAP.md, Queue A item 8).
+The pool manager (attach, decommission, rebalance), the data scanner,
+TierConfigMgr, metrics, the event notifier with its targets and the flight
+recorder are wired as the JAX node wires them. Left for later, each at its
+site below: disk/memory caches, replication, site replication, the console
+and the etcd IAM store (ROADMAP.md, Queue A items 8.5-8.8).
 """
 
 from __future__ import annotations
@@ -163,6 +163,9 @@ class Node:
         self.poolmgr = None
         self.scanner = None
         self.tiering = None
+        self.metrics = None
+        self.notifier = None
+        self.bandwidth = None
         self._quota_cache = None  # leader-persisted usage tree (non-leaders)
         self._quota_cache_ts = 0.0
 
@@ -338,7 +341,7 @@ class Node:
         # IAM durability (iam-object-store.go role): users/policies persist
         # through the erasure-backed config store (sealed with the root
         # credential) and reload on boot. The etcd store (control/etcd.py)
-        # waits for Queue A item 8. A FAILED load (degraded quorum) disables
+        # waits for Queue A item 8.6. A FAILED load (degraded quorum) disables
         # persistence for this process instead of risking an empty snapshot
         # overwriting the real one on the next mutation.
         self.iam.store = store
@@ -360,7 +363,7 @@ class Node:
                 exc=e,
             )
         # The disk and memory caches (object/cache.py, object/memcache.py)
-        # wait for Queue A item 8: the S3 front serves the pools directly.
+        # wait for Queue A item 8.8: the S3 front serves the pools directly.
         s3 = S3Server(
             self.pools,
             self.iam,
@@ -369,18 +372,45 @@ class Node:
             kms=self.kms,
             config=self.config,
         )
+        from ..control.bandwidth import BandwidthMonitor
+        from ..control.event_targets import configure_targets
+        from ..control.events import EventNotifier
+        from ..control.metrics import MetricsSys
+        from ..storage.format import SYS_DIR
+
+        self.metrics = MetricsSys()
+        self.metrics.layer = self.pools
         self.trace = GLOBAL_TRACE
         self.logger = GLOBAL_LOGGER
+        self.notifier = EventNotifier()
+        # Durable event spool on the first local drive (queuestore.go keeps
+        # its spool under the local config dir too).
+        spool_root = ""
+        if self.local_drives:
+            first = next(iter(self.local_drives))
+            spool_root = os.path.join(first, SYS_DIR, "notify-spool")
+        self.notify_target_errors: dict[str, str] = {}
+
+        def _target_err(tid, e):
+            self.notify_target_errors[tid] = str(e)
+            GLOBAL_LOGGER.error(f"notify target {tid} disabled: {e}", exc=e)
+
+        configure_targets(self.notifier, self.config, spool_root, on_error=_target_err)
+        # The replica traffic monitor behind admin /bandwidth; the
+        # replication workers of Queue A item 8.5 feed it.
+        self.bandwidth = BandwidthMonitor()
+        s3.metrics = self.metrics
         s3.trace = self.trace
         s3.logger = self.logger
+        s3.notifier = self.notifier
         # Every durable bucket-meta mutation (from ANY writer: S3 handlers,
         # the target registry, quota admin) broadcasts the peer
         # invalidation -- the meta cache has no TTL.
         s3.bucket_meta.on_change = lambda b: self.notification.reload_bucket_meta_all(b)
-        # s3.peer_notification (the cluster-wide listen and trace merge)
-        # waits for the event notifier and api/streams.py (Queue A item
-        # 8.3). Metrics, event targets, replication and site replication
-        # wait for Queue A item 8.
+        # Cluster-wide watcher streams: listen/trace responses merge every
+        # peer's records (ListenNotification + admin trace peer subscription).
+        s3.peer_notification = self.notification
+        # Replication and site replication wait for Queue A item 8.5.
         # Hard bucket quotas read the scanner's usage tree
         # (enforceBucketQuota, cmd/bucket-quota.go:112).
         s3.quota_usage = self._quota_usage
@@ -423,15 +453,37 @@ class Node:
         self.tiering = TierConfigMgr(store, kms=self.kms)
         s3.tiering = self.tiering
         # Scanner leadership via a never-released dsync lock (runDataScanner
-        # :99-111); only one node in the cluster scans at a time. The event
-        # notifier waits for Queue A item 8.3.
+        # :99-111); only one node in the cluster scans at a time.
         self.scanner = DataScanner(
             self.pools,
             bucket_meta=s3.bucket_meta,
-            notifier=None,
+            notifier=self.notifier,
             leader_lock=self.ns_lock.new(".minio_tpu.sys", "leader/data-scanner"),
             store=store,
             tiering=self.tiering,
+        )
+        # Metrics sources for the node exposition (drive series come through
+        # metrics.layer; these feed heal/scanner progress and cluster fan-out).
+        # The memory cache and replication read None until Queue A items 8.8
+        # and 8.5.
+        self.metrics.node_url = self.url
+        self.metrics.notification = self.notification
+        self.metrics.scanner = self.scanner
+        self.metrics.healmgr = self.healmgr
+        self.metrics.mrf = self.mrf
+        self.metrics.disk_heal = self.disk_heal
+        self.metrics.poolmgr = self.poolmgr
+        self.metrics.notifier = self.notifier
+        # Rehydrate notification rules from persisted bucket metadata: the
+        # notifier starts empty, and without this pass a restart silently
+        # stops event delivery for every configured bucket until an
+        # operator re-PUTs the config. Parallel: serial per-bucket quorum
+        # reads would add O(buckets) to boot on large namespaces.
+        from ..object import metadata as _meta_mod
+
+        _meta_mod.parallel_map(
+            lambda b: self.refresh_bucket_notification(b.name, s3=s3),
+            self.pools.list_buckets(),
         )
         # Arm the always-on profiling plane (continuous stack sampler + GIL
         # probe; MTPU_PROFILE=0 vetoes). Process-wide singleton, stopped by
@@ -439,6 +491,21 @@ class Node:
         from ..control.profiler import GLOBAL_PROFILER
 
         GLOBAL_PROFILER.ensure_started()
+        # Arm the flight recorder's trigger engine (control/flight.py;
+        # MTPU_FLIGHT=0 vetoes -- tests default it off in conftest.py) and
+        # wire this node's identity + incident fanout into the process
+        # singleton. Last node registered wins: one node per process in
+        # production; in-process cluster peers still capture under their
+        # own tags via the flightcapture peer verb. close() takes back what
+        # this node wired, close_all() stops the engine.
+        from ..control.flight import GLOBAL_FLIGHT
+
+        GLOBAL_FLIGHT.register_node(
+            self.url,
+            fanout=self.notification.flight_capture_all,
+            pool_status_fn=self.poolmgr.status,
+        )
+        GLOBAL_FLIGHT.ensure_started()
         # Serve last: until here the S3 entry and the admin routes answer 503.
         self.s3 = s3
         # Resume any drain the previous process left running (the leader
@@ -447,6 +514,29 @@ class Node:
         if self.is_leader and os.environ.get("MTPU_POOL_RESUME", "1") != "0":
             self.poolmgr.resume_pending()
         return self
+
+    def refresh_bucket_notification(self, bucket: str, s3=None) -> None:
+        """Load one bucket's notifier rules from its persisted metadata —
+        the single implementation boot rehydration (which passes the front
+        build() has not published yet) and the peer reload handler share.
+        Error policy: bucket gone -> clear the rules; transient read
+        failure or malformed XML -> KEEP the current rules (silently
+        dropping events on a flap would be worse than serving one stale
+        rule set)."""
+        s3 = s3 if s3 is not None else self.s3
+        if s3 is None or self.notifier is None:
+            return
+        try:
+            xml = s3.bucket_meta.get(bucket).notification_xml or ""
+        except (errors.ObjectNotFound, errors.BucketNotFound):
+            xml = ""  # bucket deleted: no rules
+        except errors.StorageError:
+            return  # transient: keep what we have
+        try:
+            self.notifier.set_bucket_rules_from_xml(bucket, xml)
+        except Exception as e:  # noqa: BLE001 - malformed persisted XML
+            self.logger.error(f"notification rules for {bucket} unparsable", exc=e)
+            return
 
     def _quota_usage(self, bucket: str) -> int | None:
         """Bucket usage bytes for quota enforcement, or None when unknown.
@@ -582,12 +672,27 @@ class Node:
         order (consumers before their feeds), clear the process default codec
         while it is still the one build() installed, and close that codec if
         build() built it (a caller's codec stays the caller's to close).
+        It also takes back what build() wired into process-wide state: the
+        flight recorder's registration and engine, while they are still
+        this node's, and the pumps of this node's listen streams.
         Idempotent, and safe on a node that never completed build() -- each
         subsystem is stopped only if it exists."""
         for sub in ("poolmgr", "scanner", "disk_heal", "mrf", "healmgr"):
             s = getattr(self, sub, None)
             if s is not None:
                 s.stop()
+        notifier = self.notifier
+        if notifier is not None:
+            for t in list(notifier.targets.values()):
+                t.close()
+            from ..api.streams import close_bridges
+
+            close_bridges(notifier.listen_hub)
+        if self.notification is not None:
+            from ..control.flight import GLOBAL_FLIGHT
+
+            if GLOBAL_FLIGHT.unregister_node(self.url, self.notification.flight_capture_all):
+                GLOBAL_FLIGHT.stop()
         installed, self._installed_codec = self._installed_codec, None
         if installed is not None:
             with codec_mod._default_lock:
@@ -607,12 +712,19 @@ class Node:
         nothing else owns their lifetime."""
         for node in list(cls._live):
             node.close()
-        # The profiling plane is process-wide (not per-node), so it stops
-        # here -- after the last node -- rather than in close(); buffering
-        # log targets flush for the same reason.
+        # The profiling and flight planes and the trace hub are process-wide
+        # (not per-node), so they stop here -- after the last node -- rather
+        # than in close(); buffering log targets flush for the same reason.
         from ..control.profiler import GLOBAL_PROFILER
 
         GLOBAL_PROFILER.stop()
+        from ..control.flight import GLOBAL_FLIGHT
+
+        GLOBAL_FLIGHT.stop()
+        from ..api.streams import close_bridges
+        from ..control.pubsub import GLOBAL_TRACE
+
+        close_bridges(GLOBAL_TRACE.hub)
         from ..control.logging import GLOBAL_LOGGER
 
         GLOBAL_LOGGER.close()
@@ -623,7 +735,7 @@ class Node:
         handler and the admin routes 503 until the object layer is up, so
         peers can reach this node's storage REST during the format handshake
         (the reference starts its dist routers before waitForFormatErasure
-        too, server-main.go:495-521). The console waits for Queue A item 8."""
+        too, server-main.go:495-521). The console waits for Queue A item 8.6."""
         app = web.Application(client_max_size=1 << 31)
         app.add_subapp(STORAGE_PREFIX, make_storage_app(self.local_drives, self.token))
         app.add_subapp(LOCK_PREFIX, make_lock_app(self.locker, self.token))
@@ -644,9 +756,9 @@ class Node:
 class _LazyAdminContext:
     """Admin context resolving node components at request time, so the admin
     router can be mounted before build() completes (it 503s until ready).
-    The subsystems of later slices (metrics, site replication) read None."""
+    Site replication (Queue A item 8.5) reads None."""
 
-    metrics = site_repl = None
+    site_repl = None
 
     def __init__(self, node: "Node"):
         self._node = node
@@ -699,6 +811,32 @@ class _LazyAdminContext:
     def bucket_meta(self):
         s3 = self._node.s3
         return s3.bucket_meta if s3 is not None else None
+
+    @property
+    def metrics(self):
+        return getattr(self._node, "metrics", None)
+
+    @property
+    def trace(self):
+        return getattr(self._node, "trace", None)
+
+    @property
+    def bandwidth(self):
+        return getattr(self._node, "bandwidth", None)
+
+    @property
+    def kms(self):
+        return getattr(self._node, "kms", None)
+
+    @property
+    def local_drives(self):
+        # The selftest drive probe walks the PRODUCTION drive stacks
+        # (metered/health-gated wrappers included), keyed by drive path.
+        return self._node.local_drives
+
+    @property
+    def node_url(self):
+        return self._node.url
 
 
 def _default_set_count(n: int) -> int:

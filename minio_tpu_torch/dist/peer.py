@@ -4,10 +4,6 @@ Role of the reference's peer REST v16 (cmd/peer-rest-{client,server}.go,
 notification.go NotificationSys): config/IAM/bucket-metadata propagation,
 health pings, lock listing, and admin fan-out. Data never rides this channel
 -- it is DCN-latency-tolerant control traffic.
-
-The routes whose modules the port does not have yet answer 501 naming the
-module, from NOT_PORTED_PEER_ROUTES (ROADMAP.md, Queue A item 8), as
-api/admin.py's NOT_PORTED_ROUTES do, and PeerClient has no calls for them.
 """
 
 from __future__ import annotations
@@ -24,20 +20,6 @@ from .transport import ERROR_HEADER, TOKEN_HEADER, RestClient
 
 PEER_PREFIX = "/mtpu/peer/v1"
 START_TIME = time.time()
-
-# The peer routes whose modules the port does not have yet, each with its
-# module (ROADMAP.md, Queue A item 8).
-NOT_PORTED_PEER_ROUTES: tuple[tuple[str, str], ...] = (
-    ("speedtest", "control/selftest.py"),
-    ("selftestobject", "control/selftest.py"),
-    ("netperfrun", "control/selftest.py"),
-    ("netperf", "control/selftest.py"),
-    ("flightcapture", "control/flight.py"),
-    ("flightlist", "control/flight.py"),
-    ("flightget", "control/flight.py"),
-    ("listen", "control/events.py and api/streams.py"),
-    ("trace", "control/events.py and api/streams.py"),
-)
 
 
 def make_peer_app(node, token: str) -> web.Application:
@@ -99,9 +81,11 @@ def make_peer_app(node, token: str) -> web.Application:
         bucket = a.get("bucket", "")
         if node.s3 is not None:
             node.s3.bucket_meta.invalidate(bucket)
-            # Refreshing this node's notifier rules from the re-fetched
-            # metadata waits for the event notifier (control/events.py,
-            # ROADMAP.md Queue A item 8.3).
+            # Refresh this node's notifier rules from the re-fetched
+            # metadata (event config changed on a peer would otherwise
+            # keep firing by this node's stale rule set).
+            if bucket:
+                node.refresh_bucket_notification(bucket)
         # Also drop the object layer's bucket-EXISTENCE cache: a peer that
         # deleted the bucket must not leave this node serving PUTs into the
         # removed namespace for the cache TTL.
@@ -143,12 +127,99 @@ def make_peer_app(node, token: str) -> web.Application:
             return {}
         return pm.status()
 
+    def h_speedtest(a):
+        """Self-benchmark PUT+GET through the object layer
+        (peer-rest-server.go:1137 selfSpeedtest)."""
+        import os as _os
+        import time as _time
+
+        size = int(a.get("size", 1 << 20))
+        count = int(a.get("count", 4))
+        bucket = ".minio_tpu.sys"
+        payload = _os.urandom(size)
+        t0 = _time.perf_counter()
+        for i in range(count):
+            node.pools.pools[0].put_object(bucket, f"speedtest/obj-{i}", payload)
+        put_t = _time.perf_counter() - t0
+        t0 = _time.perf_counter()
+        for i in range(count):
+            node.pools.pools[0].get_object(bucket, f"speedtest/obj-{i}")
+        get_t = _time.perf_counter() - t0
+        for i in range(count):
+            try:
+                node.pools.pools[0].delete_object(bucket, f"speedtest/obj-{i}")
+            except errors.StorageError:
+                pass
+        return {
+            "put_bytes_per_s": size * count / put_t if put_t else 0,
+            "get_bytes_per_s": size * count / get_t if get_t else 0,
+        }
+
+    # Peer side of the live-cluster self-measurement plane
+    # (control/selftest.py; the reference's peer-rest selfSpeedtest /
+    # netperf verbs): the admin node fans a probe round out to every peer
+    # so all nodes drive load AT THE SAME TIME.
+
+    def h_selftest_object(a):
+        """Run one object PUT+GET round locally at the requested
+        concurrency (this node's contribution to a cluster speedtest)."""
+        from ..control import selftest
+
+        return selftest.run_object_round(
+            node.pools,
+            size=int(a.get("size", 1 << 20)),
+            n_ops=int(a.get("ops", 8)),
+            workers=int(a.get("workers", 4)),
+            tag=node.url.replace("://", "-").replace(":", "-").replace("/", "-"),
+        )
+
+    def h_netperf_run(a):
+        """Stream payloads from THIS node to all ITS peers: one row of the
+        full-mesh bandwidth/latency matrix."""
+        from ..control import selftest
+
+        peers = list(getattr(node.notification, "peers", []) or [])
+        return {
+            "row": selftest.netperf_row(
+                peers,
+                size=int(a.get("size", 1 << 20)),
+                rounds=int(a.get("rounds", 4)),
+            )
+        }
+
     def h_timeseries(a):
         """This node's raw ops/s ring snapshot; the admin
         /timeseries?cluster=1 endpoint merges rings second-by-second."""
         from ..control.perf import GLOBAL_PERF
 
         return {"timeseries": GLOBAL_PERF.timeseries.snapshot()}
+
+    # Flight-recorder plane (control/flight.py): an incident detected on
+    # any node broadcasts here so EVERY node freezes the same wall-clock
+    # window -- one correlated black-box dump per incident, not N skewed
+    # snapshots.
+
+    def h_flight_capture(a):
+        """Capture THIS node's bundle for the originator's incident (same
+        t0/t1 cluster-wide). Idempotent per (incident, node); also arms the
+        local cooldown so this node's own trigger won't re-open it."""
+        from ..control.flight import GLOBAL_FLIGHT
+
+        incident = a.get("incident", {}) or {}
+        return {"id": GLOBAL_FLIGHT.capture(incident, node=node.url)}
+
+    def h_flight_list(a):
+        """This node's bundle metas + recorder counters; the admin
+        /flight?cluster=1 endpoint merges peer lists."""
+        from ..control.flight import GLOBAL_FLIGHT
+
+        return {"bundles": GLOBAL_FLIGHT.list(), "stats": GLOBAL_FLIGHT.stats()}
+
+    def h_flight_get(a):
+        """One full bundle by id (or newest bundle of an incident id)."""
+        from ..control.flight import GLOBAL_FLIGHT
+
+        return {"bundle": GLOBAL_FLIGHT.get(str(a.get("id", "")))}
 
     # Per-node profiling (peer side of the admin start/download broadcast,
     # cmd/admin-handlers.go:511-716: every node profiles itself with a
@@ -237,6 +308,34 @@ def make_peer_app(node, token: str) -> web.Application:
             return {"removed": int(removed)}
         return {"faults": REGISTRY.list() + crash_mod.REGISTRY.list()}
 
+    # Streaming endpoints: this node's live event / trace records as NDJSON
+    # (peer-rest-server.go:985 role) -- the serving node merges these into
+    # its watcher responses so `mc watch` / `mc admin trace` see the whole
+    # cluster, not one node.
+    async def h_listen_stream(request: web.Request):
+        if not check_token(request):
+            return web.Response(status=403)
+        notifier = getattr(node, "notifier", None)
+        if notifier is None:
+            return web.Response(status=501)
+        import json as _json
+
+        from ..api.streams import stream_hub_response
+
+        return await stream_hub_response(request, notifier.listen_hub, _json.dumps)
+
+    async def h_trace_stream(request: web.Request):
+        if not check_token(request):
+            return web.Response(status=403)
+        trace = getattr(node, "trace", None)
+        if trace is None:
+            return web.Response(status=501)
+        import json as _json
+
+        from ..api.streams import stream_hub_response
+
+        return await stream_hub_response(request, trace.hub, _json.dumps)
+
     for name, fn in {
         "ping": h_ping,
         "serverinfo": h_server_info,
@@ -246,6 +345,7 @@ def make_peer_app(node, token: str) -> web.Application:
         "toplocks": h_top_locks,
         "poolsreload": h_pools_reload,
         "poolsstatus": h_pools_status,
+        "speedtest": h_speedtest,
         "profilestart": h_profile_start,
         "profilestop": h_profile_stop,
         "profile": h_profile,
@@ -253,24 +353,30 @@ def make_peer_app(node, token: str) -> web.Application:
         "metrics": h_node_metrics,
         "perf": h_perf,
         "chaos": h_chaos,
+        "selftestobject": h_selftest_object,
+        "netperfrun": h_netperf_run,
         "timeseries": h_timeseries,
+        "flightcapture": h_flight_capture,
+        "flightlist": h_flight_list,
+        "flightget": h_flight_get,
     }.items():
         app.router.add_post(f"/{name}", handler(fn))
+    app.router.add_post("/listen", h_listen_stream)
+    app.router.add_post("/trace", h_trace_stream)
 
-    def not_ported(name: str, module: str):
-        async def h(request: web.Request):
-            if not check_token(request):
-                return web.Response(status=403)
-            return web.Response(
-                status=501,
-                headers={ERROR_HEADER: "NotImplementedError"},
-                text=f"/{name} is not ported yet: it waits for {module}",
-            )
+    async def h_netperf_sink(request: web.Request):
+        """Netperf receive side: drain the raw payload, acknowledge its
+        length. Raw body on purpose -- a msgpack round-trip would price the
+        codec, not the link."""
+        if not check_token(request):
+            return web.Response(status=403)
+        body = await request.read()
+        return web.Response(
+            body=msgpack.packb({"received": len(body)}, use_bin_type=True),
+            content_type="application/x-msgpack",
+        )
 
-        return h
-
-    for name, module in NOT_PORTED_PEER_ROUTES:
-        app.router.add_post(f"/{name}", not_ported(name, module))
+    app.router.add_post("/netperf", h_netperf_sink)
     return app
 
 
@@ -322,8 +428,41 @@ class PeerClient:
     def top_locks(self) -> list:
         return self.client.call("/toplocks", {})
 
+    def speedtest(self, size: int = 1 << 20, count: int = 4) -> dict:
+        return self.client.call("/speedtest", {"size": size, "count": count}, timeout=120.0)
+
+    def selftest_object(self, size: int, ops: int, workers: int) -> dict:
+        """One object PUT+GET round on the peer (control/selftest.py)."""
+        return self.client.call(
+            "/selftestobject",
+            {"size": size, "ops": ops, "workers": workers},
+            timeout=120.0,
+        )
+
+    def netperf_run(self, size: int = 1 << 20, rounds: int = 4) -> dict:
+        """Ask the peer to stream to ITS peers: its row of the mesh."""
+        return self.client.call(
+            "/netperfrun", {"size": size, "rounds": rounds}, timeout=120.0
+        )
+
+    def netperf_payload(self, payload) -> dict:
+        """Send one raw payload to the peer's netperf sink."""
+        return self.client.call("/netperf", body=payload, timeout=60.0)
+
     def timeseries_snapshot(self, timeout: float | None = None) -> dict:
         return self.client.call("/timeseries", {}, timeout=timeout) or {}
+
+    def flight_capture(self, incident: dict, timeout: float | None = None) -> dict:
+        """Ask the peer to capture ITS bundle for this incident's window."""
+        return self.client.call(
+            "/flightcapture", {"incident": incident}, timeout=timeout
+        ) or {}
+
+    def flight_list(self, timeout: float | None = None) -> dict:
+        return self.client.call("/flightlist", {}, timeout=timeout) or {}
+
+    def flight_get(self, bundle_id: str, timeout: float | None = None) -> dict:
+        return self.client.call("/flightget", {"id": bundle_id}, timeout=timeout) or {}
 
     def bandwidth(self, bucket: str = "") -> dict:
         return self.client.call("/bandwidth", {"bucket": bucket})
@@ -344,6 +483,17 @@ class PeerClient:
 
     def profile_snapshot(self, top: int = 40, timeout: float | None = None) -> dict:
         return self.client.call("/profile", {"top": top}, timeout=timeout) or {}
+
+    def listen_stream(self):
+        """Live event stream from this peer (caller iterates lines + closes).
+        No static timeout: the endpoint's DynamicTimeout tuner sizes the
+        time-to-headers wait, and the peer's ~1s keep-alives hold the
+        connection open far under the 5s tuner floor."""
+        return self.client.call("/listen", {}, stream=True)
+
+    def trace_stream(self):
+        """Live trace stream from this peer."""
+        return self.client.call("/trace", {}, stream=True)
 
 
 class NotificationSys:
@@ -388,6 +538,12 @@ class NotificationSys:
         """Cluster-wide fault arm/disarm (the admin /chaos handlers call
         this after applying locally)."""
         self._fanout(lambda p, t: p.chaos(op, spec=spec, fault_id=fault_id, timeout=t))
+
+    def flight_capture_all(self, incident: dict) -> None:
+        """Incident broadcast (control/flight.py trigger/dump): every peer
+        captures its bundle for the SAME wall-clock window, so the cluster
+        yields one correlated dump per incident."""
+        self._fanout(lambda p, t: p.flight_capture(incident, timeout=t))
 
     def reload_bucket_meta_all(self, bucket: str = "") -> None:
         self._fanout(lambda p, t: p.reload_bucket_meta(bucket, timeout=t))

@@ -1,18 +1,21 @@
 """Phases 5 and 6 of chip_smoke.py at two sizes, in one process on one NVIDIA GPU.
 
-    python3 -m minio_tpu_torch.tools.smoke_cuts [--phase5-only]
+    python3 -m minio_tpu_torch.tools.smoke_cuts [--phase5-only | --phase6-old-gets]
 
 Run from the root of a checkout, where chip_smoke.py sits. It builds and
 times the kernels (chip_smoke.py's phases 1 and 2), then runs phase 5 (the
 48-drive two-pool deployment) and phase 6 (the same deployment behind the
-S3 front) at the sizes chip_smoke.py runs (768 objects, 256 GETs of old
-objects) and at the sizes they had before phase 5 was cut to make room for
-phase 11 (1,024 and 256), in turns (now, before, before, now: the first
-run of a process pays its warm-up), on one codec, and prints each run's
-seconds beside the card's name and power limit. With --phase5-only it runs
-phase 5 alone at both sizes. Every check of the phases holds at both
-sizes. Exits non-zero without a CUDA device. (Phase 10's cuts, from 2,048
-objects and 512 GETs, were timed by this tool at those sizes.)
+S3 front) at two sizes in turns (now, before, before, now: the first run of
+a process pays its warm-up), on one codec, and prints each run's seconds
+beside the card's name and power limit. By default the sizes are phase 5's
+cut that made room for phase 12 (512 objects now, 768 before; 128 GETs of
+old objects in phase 6 both times). With --phase5-only it runs phase 5
+alone at those two sizes. With --phase6-old-gets it times phase 6's cut
+that also made room for phase 12: 768 objects both times, phase 6's GETs
+of phase 5's survivors at 128 now and 256 before. Every check of the
+phases holds at every size. Exits non-zero without a CUDA device. (The
+cuts for phases 10 and 11, from 2,048 to 1,024 and 768 objects and from
+512 to 256 old GETs, were timed by this tool at those sizes.)
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import time
 
 import torch
 
-SIZES = (("now", 768, 256), ("before the cut", 1024, 256))
+SIZES = (("now", 512, 128), ("before the cut", 768, 128))
+OLD_GET_SIZES = (("now", 768, 128), ("before the cut", 768, 256))
 ORDER = (0, 1, 1, 0)
 
 
@@ -35,6 +39,7 @@ def main() -> int:
         print("smoke_cuts: no CUDA device", file=sys.stderr)
         return 1
     phase5_only = "--phase5-only" in sys.argv[1:]
+    sizes = OLD_GET_SIZES if "--phase6-old-gets" in sys.argv[1:] else SIZES
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
 
@@ -47,7 +52,7 @@ def main() -> int:
     tally = cs.Tally()
     out: dict = {}
     try:
-        for label, n_objects, n_get_old in (SIZES[i] for i in ORDER):
+        for label, n_objects, n_get_old in (sizes[i] for i in ORDER):
             root = tempfile.mkdtemp(prefix="smoke_cuts_")
             try:
                 rates: dict = {}

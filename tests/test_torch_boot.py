@@ -41,6 +41,7 @@ import pytest
 
 from minio_tpu import cli as jax_cli
 from minio_tpu.control import config as jax_config
+from minio_tpu.control import flight as jax_flight
 from minio_tpu.control import healmgr as jax_healmgr
 from minio_tpu.dist.node import Node as JaxNode
 from minio_tpu.object.codec import HostCodec as JaxHostCodec
@@ -52,6 +53,7 @@ from minio_tpu_torch import cli, runtime
 from minio_tpu_torch.api import admin
 from minio_tpu_torch.api.auth import Credentials, sign_request
 from minio_tpu_torch.control import config as port_config
+from minio_tpu_torch.control import flight as port_flight
 from minio_tpu_torch.control import healmgr as port_healmgr
 from minio_tpu_torch.dist.node import Node
 from minio_tpu_torch.ops import goldens
@@ -285,15 +287,64 @@ def _script(c: Client, heal_seq: dict, log: dict, side: Side) -> None:
     log["inspect-missing"] = c.json("GET", f"{ADMIN}/inspect", query=[("volume", "bkt"), ("file", "nope")])
 
 
-# The admin routes this slice ported from the JAX package (pool lifecycle,
-# the scanner's usage and quota, remote tiers), in the order _ported_routes
-# calls them.
+# The admin routes the later slices ported from the JAX package (pool
+# lifecycle, the scanner's usage and quota, remote tiers; then events and
+# operations: health, bandwidth, KMS, update, metrics, the speedtests, the
+# flight recorder and trace), in the order _ported_routes calls them.
 PORTED_ROUTES = (
     "GET /datausage", "GET /quota", "PUT /quota", "GET /pools/status", "POST /pools/attach",
     "POST /pools/decommission", "POST /pools/rebalance", "POST /tiers", "GET /tiers",
     "PUT /tiers/{name}/creds", "GET /tiers/stats", "DELETE /tiers/{name}",
+    "GET /healthinfo", "GET /bandwidth", "GET /kms/status", "GET /kms/key/status", "POST /update", "GET /update",
+    "GET /metrics", "GET /timeseries", "POST /speedtest", "POST /speedtest/object", "GET /speedtest/object",
+    "POST /speedtest/drive", "GET /speedtest/drive", "POST /speedtest/net", "GET /speedtest/net",
+    "POST /flight/dump", "GET /flight", "GET /flight/{id}", "GET /trace",
 )
 ATTACHED = [f"p2d{i}" for i in range(SET_DRIVES)]
+UPDATE_KEY = bytes(range(32))  # the ed25519 seed of the test's release signing key
+
+
+def _release(root: str) -> str:
+    """A file:// release mirror signed with UPDATE_KEY: RELEASE.json, its
+    detached signature and a tar.gz holding both packages' trees."""
+    import base64
+    import tarfile
+
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PrivateKey
+
+    os.makedirs(root, exist_ok=True)
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tf:
+        for name in ("minio_tpu_torch/__init__.py", "minio_tpu/__init__.py"):
+            data = f'__version__ = "0.6.0"  # {name}\n'.encode()
+            info = tarfile.TarInfo(name)
+            info.size, info.mtime = len(data), 1_760_000_000
+            tf.addfile(info, io.BytesIO(data))
+    blob = buf.getvalue()
+    with open(os.path.join(root, "release.tar.gz"), "wb") as f:
+        f.write(blob)
+    manifest = json.dumps({"version": "0.6.0", "sha256": hashlib.sha256(blob).hexdigest(),
+                           "archive": "release.tar.gz"}).encode()
+    key = Ed25519PrivateKey.from_private_bytes(UPDATE_KEY)
+    with open(os.path.join(root, "RELEASE.json"), "wb") as f:
+        f.write(manifest)
+    with open(os.path.join(root, "RELEASE.json.sig"), "wb") as f:
+        f.write(key.sign(manifest))
+    return base64.b64encode(key.public_key().public_bytes_raw()).decode()
+
+
+def _open_stream(c: Client, path: str):
+    """A signed GET whose response is a stream: its status and content type,
+    read from the headers; the client then goes away."""
+    headers = sign_request(c.creds, "GET", path, [], {"host": f"{c.host}:{c.port}"}, b"")
+    headers.pop("host", None)
+    conn = http.client.HTTPConnection(c.host, c.port, timeout=30)
+    try:
+        conn.request("GET", path, headers=headers)
+        r = conn.getresponse()
+        return r.status, {"content-type": r.getheader("Content-Type", "").split(";")[0]}
+    finally:
+        conn.close()
 
 
 def _ported_routes(c: Client, side: Side) -> dict:
@@ -312,9 +363,35 @@ def _ported_routes(c: Client, side: Side) -> dict:
         "PUT /tiers/{name}/creds": ("PUT", "/tiers/COLD/creds", {"accessKey": "tierak", "secretKey": "tiersk"}, ()),
         "GET /tiers/stats": ("GET", "/tiers/stats", b"", ()),
         "DELETE /tiers/{name}": ("DELETE", "/tiers/COLD", b"", ()),
+        "GET /healthinfo": ("GET", "/healthinfo", b"", ()),
+        "GET /bandwidth": ("GET", "/bandwidth", b"", ()),
+        "GET /kms/status": ("GET", "/kms/status", b"", ()),
+        "GET /kms/key/status": ("GET", "/kms/key/status", b"", [("key-id", "default-key")]),
+        "POST /update": ("POST", "/update", b"", [("url", "file://" + os.path.join(side.root, "..", "release")),
+                                                  ("stage-dir", os.path.join(side.root, "stage"))]),
+        "GET /update": ("GET", "/update", b"", ()),
+        "GET /metrics": ("GET", "/metrics", b"", ()),
+        "GET /timeseries": ("GET", "/timeseries", b"", [("horizon", "30")]),
+        "POST /speedtest": ("POST", "/speedtest", {"size": 65536, "count": 1}, ()),
+        "POST /speedtest/object": ("POST", "/speedtest/object",
+                                   {"size": 65536, "concurrency": 1, "max_concurrency": 1}, ()),
+        "GET /speedtest/object": ("GET", "/speedtest/object", b"", ()),
+        "POST /speedtest/drive": ("POST", "/speedtest/drive", {"size": 65536, "files": 1, "rand_reads": 2}, ()),
+        "GET /speedtest/drive": ("GET", "/speedtest/drive", b"", ()),
+        "POST /speedtest/net": ("POST", "/speedtest/net", {"size": 4096, "rounds": 1}, ()),
+        "GET /speedtest/net": ("GET", "/speedtest/net", b"", ()),
+        "POST /flight/dump": ("POST", "/flight/dump", {"note": "boot"}, ()),
+        "GET /flight": ("GET", "/flight", b"", ()),
     }
     out = {}
     for route in PORTED_ROUTES:
+        if route == "GET /trace":
+            out[route] = _open_stream(c, f"{ADMIN}/trace")
+            continue
+        if route == "GET /flight/{id}":
+            bundle_id = out["GET /flight"][1]["bundles"][0]["id"]
+            out[route] = c.json("GET", f"{ADMIN}/flight/{bundle_id}")
+            continue
         method, path, body, query = calls[route]
         out[route] = c.json(method, ADMIN + path, body, query)
     out["GET /quota after"] = c.json("GET", f"{ADMIN}/quota", query=[("bucket", "bkt")])
@@ -390,7 +467,13 @@ def boot(tmp_path_factory):
         out.codec = sides["port"].node.codec
         for name, side in sides.items():
             _script(side.client, out.heal_seq, out.log[name], side)
-        out.ported = {name: _ported_routes(side.client, side) for name, side in sides.items()}
+        pubkey = _release(os.path.join(root, "release"))
+        with mp.context() as m:
+            m.setenv("MINIO_TPU_UPDATE_PUBKEY", pubkey)
+            # Each package's flight recorder files its bundles under its own tree.
+            for name, fl in (("jax", jax_flight.GLOBAL_FLIGHT), ("port", port_flight.GLOBAL_FLIGHT)):
+                m.setattr(fl, "dir", os.path.join(sides[name].root, "flight"))
+            out.ported = {name: _ported_routes(side.client, side) for name, side in sides.items()}
         out.roots = {name: side.root for name, side in sides.items()}
         out.unported = {
             (method, path): sides["port"].client.json(method, ADMIN + path.replace("{id}", "x").replace(
@@ -556,14 +639,33 @@ def test_unported_admin_route_answers_501(boot, route):
     assert doc["Code"] == "NotImplemented" and module in doc["Message"]
 
 
+def _drives_listed(d: dict) -> dict:
+    return {**{k: v for k, v in d.items() if k != "drives"}, "drives": list(d["drives"].values())}
+
+
+# Answers whose content is each run's own (machine state, timings, the
+# process-wide counters of earlier tests): compared by the shape these keep.
+VARIABLE = {
+    "GET /healthinfo": lambda d: {"keys": sorted(d), "drives": [sorted(x) for x in d["drives"]]},
+    "GET /metrics": lambda d: d.startswith(b"# HELP "),
+    "GET /timeseries": lambda d: {"keys": sorted(d), "node": sorted(d["node"]), "rates": type(d["rates"]).__name__},
+    "POST /update": lambda d: {k: v for k, v in d.items() if k != "note"},
+    "POST /speedtest/drive": _drives_listed,
+    "GET /speedtest/drive": _drives_listed,
+    "GET /flight": lambda d: {"bundles": d["bundles"], "stats": sorted(d["stats"])},
+    "GET /flight/{id}": lambda d: {"keys": sorted(d), "reason": d["reason"], "detail": d["detail"]},
+}
+
+
 @pytest.mark.parametrize("route", PORTED_ROUTES)
 def test_ported_admin_route_answers_as_the_jax_handler(boot, route):
-    """The 12 routes that left NOT_PORTED_ROUTES with the pool lifecycle,
-    scanner and tiering slice: the port's status and JSON shape are the JAX
-    handler's."""
+    """The routes that left NOT_PORTED_ROUTES (the pool lifecycle, scanner
+    and tiering slice; the events and operations slice): the port's status
+    and JSON shape are the JAX handler's."""
     (sj, dj), (sp, dp) = boot.ported["jax"][route], boot.ported["port"][route]
     assert sp == sj == 200, (route, sj, dj, sp, dp)
-    assert json_kind(dp, boot.roots["port"]) == json_kind(dj, boot.roots["jax"])
+    norm = VARIABLE.get(route, lambda d: d)
+    assert json_kind(norm(dp), boot.roots["port"]) == json_kind(norm(dj), boot.roots["jax"])
     method, path = route.split(" ")
     assert (method, path) not in {(m, p) for m, p, _ in admin.NOT_PORTED_ROUTES}
     if route == "POST /pools/attach":
@@ -580,6 +682,21 @@ def test_ported_admin_route_answers_as_the_jax_handler(boot, route):
     if route == "GET /tiers":
         assert [t["dir"] for t in dp] == [os.path.join(boot.roots["port"], "tier")]
         assert "secret_key" not in dp[0]
+    if route == "GET /healthinfo":
+        assert len(dp["drives"]) == len(dj["drives"]) == 16  # 12 and the attached pool's 4
+    if route == "POST /update":
+        assert dp["available"] == "0.6.0" and dp["pubkey_configured"] is True
+        assert "minio_tpu_torch update --apply" in dp["note"]
+        assert os.path.isfile(os.path.join(dp["staged"], "minio_tpu_torch", "__init__.py"))
+    if route == "GET /metrics":
+        assert b"minio_tpu_codec_encode_batches_total" in dp
+        assert b"minio_tpu_device_probe_recovery_interval_seconds" not in dp
+    if route == "POST /speedtest/object":
+        assert dp["ok"] and [r["concurrency"] for r in dp["ramp"]] == [1]
+    if route == "GET /flight":
+        assert len(dp["bundles"]) == len(dj["bundles"]) == 1
+    if route == "GET /trace":
+        assert dp == dj == {"content-type": "application/x-ndjson"}
 
 
 def test_unported_routes_are_every_other_jax_admin_route():
@@ -779,3 +896,90 @@ def test_remote_endpoint_becomes_a_remote_drive(tmp_path):
         assert node.peer_urls == ["http://10.0.0.2:9000"] and node.is_leader
     finally:
         node.close()
+
+
+# -- control/update.py and the CLI `update` command -------------------------------------------
+
+
+def _stage(mod, url: str, stage: str):
+    try:
+        info = mod.check_update(url)
+        return ("staged", info.version, info.sha256, info.archive,
+                os.path.relpath(mod.download_and_stage(info, stage), stage))
+    except mod.UpdateError as e:
+        return ("refused", str(e).split(":")[0])
+
+
+@pytest.mark.parametrize("case", ["signed", "tampered", "unsigned", "wrong-key"])
+def test_update_staging_against_jax(tmp_path, monkeypatch, case):
+    """The same signed file:// release stages into the same tree in both
+    packages; a tampered manifest, a missing key and a wrong key are refused
+    the same way before any archive byte is trusted."""
+    import base64
+
+    from minio_tpu.control import update as jax_update
+    from minio_tpu_torch.control import update as port_update
+
+    mirror = str(tmp_path / "mirror")
+    pubkey = _release(mirror)
+    if case == "tampered":
+        with open(os.path.join(mirror, "RELEASE.json"), "ab") as f:
+            f.write(b" ")
+    if case == "unsigned":
+        monkeypatch.delenv("MINIO_TPU_UPDATE_PUBKEY", raising=False)
+    else:
+        monkeypatch.setenv("MINIO_TPU_UPDATE_PUBKEY",
+                           base64.b64encode(bytes(32)).decode() if case == "wrong-key" else pubkey)
+    got = {}
+    for name, mod in (("jax", jax_update), ("port", port_update)):
+        stage = str(tmp_path / name)
+        os.makedirs(stage)
+        got[name] = _stage(mod, "file://" + mirror, stage)
+        tree = sorted(os.path.relpath(os.path.join(d, f), stage) for d, _, fs in os.walk(stage) for f in fs)
+        got[name] += (tree,)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == ("staged" if case == "signed" else "refused")
+
+
+def test_cli_update_stages_and_applies_the_port_tree(tmp_path, monkeypatch):
+    """`python -m minio_tpu_torch update <url>` stages; with --apply it swaps
+    the minio_tpu_torch/ tree of the release into the package's directory
+    (here a copy of cli.py's own directory, so the running package stays)."""
+    mirror = str(tmp_path / "mirror")
+    monkeypatch.setenv("MINIO_TPU_UPDATE_PUBKEY", _release(mirror))
+    stage = str(tmp_path / "stage")
+    assert cli.main(["update", "file://" + mirror, "--stage-dir", stage]) == 0
+    assert os.path.isfile(os.path.join(stage, "minio_tpu-0.6.0", "minio_tpu_torch", "__init__.py"))
+    pkg = tmp_path / "site" / "minio_tpu_torch"
+    pkg.mkdir(parents=True)
+    (pkg / "__init__.py").write_text("old\n")
+    monkeypatch.setattr(cli, "__file__", str(pkg / "cli.py"))
+    assert cli.main(["update", "file://" + mirror, "--stage-dir", stage, "--apply"]) == 0
+    assert (pkg / "__init__.py").read_text().startswith('__version__ = "0.6.0"')
+    assert (tmp_path / "site" / "minio_tpu_torch.previous" / "__init__.py").read_text() == "old\n"
+    monkeypatch.delenv("MINIO_TPU_UPDATE_PUBKEY")
+    assert cli.main(["update", "file://" + mirror, "--stage-dir", stage]) == 1  # unsigned: refused
+
+
+@pytest.mark.parametrize("case", ["signed", "unsigned", "allow-unsigned"])
+def test_cli_update_against_jax(tmp_path, monkeypatch, capsys, case):
+    """The `update` command of both CLIs on the same mirror: the same exit
+    code, the same lines printed (the staging root aside) and the same
+    staged tree; without a key it refuses unless --allow-unsigned."""
+    mirror = str(tmp_path / "mirror")
+    pubkey = _release(mirror)
+    if case == "signed":
+        monkeypatch.setenv("MINIO_TPU_UPDATE_PUBKEY", pubkey)
+    else:
+        monkeypatch.delenv("MINIO_TPU_UPDATE_PUBKEY", raising=False)
+    extra = ["--allow-unsigned"] if case == "allow-unsigned" else []
+    got = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        stage = str(tmp_path / name)
+        rc = main(["update", "file://" + mirror, "--stage-dir", stage, *extra])
+        out = capsys.readouterr()
+        tree = sorted(os.path.relpath(os.path.join(d, f), stage) for d, _, fs in os.walk(stage) for f in fs) \
+            if os.path.isdir(stage) else []
+        got[name] = (rc, out.out.replace(stage, "<stage>"), out.err.split(":")[0], tree)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == (1 if case == "unsigned" else 0)

@@ -70,8 +70,8 @@ class Server:
             args += ["--url", url]
         if device is not None:
             args[4:4] = ["--device", device]
-        full_env = dict(os.environ, PYTHONPATH=str(REPO), MINIO_ROOT_USER=ROOT[0], MINIO_ROOT_PASSWORD=ROOT[1],
-                        MINIO_STORAGE_CLASS_STANDARD="EC:1", **(env or {}))
+        full_env = {**os.environ, "PYTHONPATH": str(REPO), "MINIO_ROOT_USER": ROOT[0],
+                    "MINIO_ROOT_PASSWORD": ROOT[1], "MINIO_STORAGE_CLASS_STANDARD": "EC:1", **(env or {})}
         full_env.pop("MINIO_TPU_CODEC", None)
         self.proc = subprocess.Popen(args, cwd=REPO, env=full_env, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True)
@@ -215,10 +215,9 @@ def test_cuda_without_a_card_fails_the_boot_and_serves_no_put(tmp_path):
     "argv,env,module",
     [
         (["gateway", "nas", "/tmp/x"], {}, "object/gateway.py"),
-        (["update", "file:///mirror"], {}, "control/update.py"),
         (["server", "--device", "cpu", "{root}/one"], {}, "object/fs.py"),
     ],
-    ids=["gateway", "update", "fs-backend"],
+    ids=["gateway", "fs-backend"],
 )
 def test_unported_commands_exit_2_naming_the_module(tmp_path, monkeypatch, capsys, argv, env, module):
     for k, v in env.items():
@@ -259,3 +258,38 @@ def test_two_processes_form_a_cluster(tmp_path):
     finally:
         rcs = [n.stop() if n is not None else None for n in nodes]
     assert rcs == [0, 0], (nodes[0].err, nodes[1].err)
+
+
+def test_sigterm_leaves_a_stuck_scanner_behind(tmp_path):
+    """A server whose scanner is stuck inside one call (here a scan cycle
+    that sleeps, put in by a sitecustomize hook) exits 0 on SIGTERM after
+    the scanner's grace and no more than a few seconds beyond it, and logs
+    the scanner's stack."""
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    entered = tmp_path / "entered"
+    (hook / "sitecustomize.py").write_text(
+        "import time\n"
+        "from minio_tpu_torch.control import scanner\n\n\n"
+        "def stuck_cycle(self):\n"
+        f"    open({str(entered)!r}, 'w').close()\n"
+        "    time.sleep(120)\n\n\n"
+        "scanner.DataScanner.scan_cycle = stuck_cycle\n"
+    )
+    srv = Server(f"{tmp_path}/disk{{1...4}}", env={"PYTHONPATH": f"{hook}{os.pathsep}{REPO}"})
+    try:
+        srv.wait_online()
+        deadline = time.monotonic() + 30
+        while not entered.exists():
+            assert time.monotonic() < deadline, (srv.lines, srv.err)
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        assert srv.stop(60) == 0, srv.err
+        took = time.monotonic() - t0
+    finally:
+        if srv.proc.poll() is None:
+            srv.proc.kill()
+            srv.proc.wait(10)
+    assert cli.SCANNER_GRACE_S <= took < cli.SCANNER_GRACE_S + 10, took
+    busy = [json.loads(ln) for ln in srv.lines if '"msg": "scanner still busy at shutdown"' in ln]
+    assert len(busy) == 1 and "stuck_cycle" in busy[0]["stack"], srv.lines

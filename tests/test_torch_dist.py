@@ -16,8 +16,10 @@ Then, on port clusters of their own: a read that survives a node's loss and
 a write during the loss that heals on rejoin (3 nodes x 2 drives, a 6-drive
 set, as tests/test_dist.py does it: one node's loss leaves the write
 quorum), a mixed cluster of one JAX node and one port node over one 8-drive
-set, the peer routes that wait for later slices, and (on the card) a
-two-node cluster over the CUDA codec.
+set (a port coordinator's speedtest fans out to the JAX peer, and listen and
+trace streams merge across the two packages), each peer verb of the events
+and operations slice answered as the JAX peer answers it, and (on the card)
+a two-node cluster over the CUDA codec.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import socket
 import threading
 import time
@@ -42,7 +45,7 @@ from minio_tpu_torch import cli, runtime
 from minio_tpu_torch.dist import peer as port_peer
 from minio_tpu_torch.dist.locks import NamespaceLock, RemoteLocker
 from minio_tpu_torch.dist.node import Node
-from minio_tpu_torch.dist.peer import NOT_PORTED_PEER_ROUTES, PEER_PREFIX, PeerClient
+from minio_tpu_torch.dist.peer import PEER_PREFIX, PeerClient
 from minio_tpu_torch.dist.storage_rest import RemoteDrive
 from minio_tpu_torch.dist.transport import TOKEN_HEADER
 from minio_tpu_torch.object import erasure as port_erasure
@@ -323,19 +326,101 @@ def test_peer_ping_and_server_info(clusters):
     assert not PeerClient(clusters["port"]["urls"][1], "bad-token").ping()
 
 
-@pytest.mark.parametrize("route", [name for name, _ in NOT_PORTED_PEER_ROUTES])
-def test_unported_peer_route_answers_501(clusters, route):
-    a = clusters["port"]["served"][0].node
-    module = dict(NOT_PORTED_PEER_ROUTES)[route]
-    r = requests.post(f"{clusters['port']['urls'][1]}{PEER_PREFIX}/{route}", headers={TOKEN_HEADER: a.token},
-                      timeout=30)
-    assert r.status_code == 501 and module in r.text
-    assert requests.post(f"{clusters['port']['urls'][1]}{PEER_PREFIX}/{route}", timeout=30).status_code == 403
+# The peer verbs of the events and operations slice, in the order the
+# fixture calls them, with the arguments it sends.
+PEER_VERBS = {
+    "speedtest": {"size": 65536, "count": 1},
+    "selftestobject": {"size": 65536, "ops": 1, "workers": 1},
+    "netperfrun": {"size": 4096, "rounds": 1},
+    "netperf": b"n" * 1000,  # a raw payload, not msgpack
+    "flightcapture": {"incident": {"incident": "20251009T000000-manual-7", "reason": "manual",
+                                   "t0": MOD_TIME - 30, "t1": MOD_TIME, "origin": "test"}},
+    "flightlist": {},
+    "flightget": None,  # the id flightcapture returned
+    "listen": {},
+    "trace": {},
+}
+
+
+def _kind(value):
+    """A peer answer's shape: dict keys and list lengths kept, strings by
+    their hex shape, numbers by type."""
+    if isinstance(value, dict):
+        return {k: _kind(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_kind(v) for v in value]
+    if isinstance(value, str):
+        return re.sub(r"[0-9a-f]", "x", value)
+    if isinstance(value, bool) or value is None:
+        return value
+    return type(value).__name__
+
+
+@pytest.fixture(scope="module")
+def peer_verbs(clusters, tmp_path_factory):
+    """Each verb sent to node B of both clusters with node A's token; the
+    streams are read to their headers and closed by the client."""
+    import msgpack
+
+    from minio_tpu.control import flight as jax_flight
+    from minio_tpu_torch.control import flight as port_flight
+
+    mp = pytest.MonkeyPatch()
+    out: dict = {"jax": {}, "port": {}}
+    try:
+        for name, fl in (("jax", jax_flight.GLOBAL_FLIGHT), ("port", port_flight.GLOBAL_FLIGHT)):
+            mp.setattr(fl, "dir", str(tmp_path_factory.mktemp(f"flight-{name}")))
+        for name in ("jax", "port"):
+            token = clusters[name]["served"][0].node.token
+            url = clusters[name]["urls"][1]
+            for verb, args in PEER_VERBS.items():
+                if verb == "flightget":
+                    args = {"id": out[name]["flightcapture"][1]["id"]}
+                body = args if isinstance(args, bytes) else msgpack.packb(args, use_bin_type=True)
+                r = requests.post(f"{url}{PEER_PREFIX}/{verb}", data=body, headers={TOKEN_HEADER: token},
+                                  timeout=60, stream=verb in ("listen", "trace"))
+                if verb in ("listen", "trace"):
+                    out[name][verb] = (r.status_code, r.headers.get("Content-Type", "").split(";")[0])
+                else:
+                    out[name][verb] = (r.status_code, msgpack.unpackb(r.content, raw=False))
+                r.close()
+                out[name][f"{verb}-no-token"] = requests.post(f"{url}{PEER_PREFIX}/{verb}", timeout=30).status_code
+        yield out
+    finally:
+        mp.undo()
+
+
+# Answers whose content is each node's own: compared by the shape these keep.
+PEER_VARIABLE = {
+    "netperfrun": lambda d: {"row": list(d["row"].values())},
+    "flightlist": lambda d: {"bundles": d["bundles"], "stats": sorted(d["stats"])},
+    "flightget": lambda d: {"keys": sorted(d["bundle"]), "node": d["bundle"]["node"]},
+}
+
+
+@pytest.mark.parametrize("verb", list(PEER_VERBS))
+def test_peer_verb_answers_as_the_jax_peer(peer_verbs, verb):
+    (sj, dj), (sp, dp) = peer_verbs["jax"][verb], peer_verbs["port"][verb]
+    assert sp == sj == 200, (verb, sj, dj, sp, dp)
+    norm = PEER_VARIABLE.get(verb, lambda d: d)
+    assert _kind(norm(dp)) == _kind(norm(dj))
+    assert peer_verbs["port"][f"{verb}-no-token"] == peer_verbs["jax"][f"{verb}-no-token"] == 403
+    if verb == "netperf":
+        assert dp == dj == {"received": 1000}
+    if verb == "selftestobject":
+        assert dp["ops"] == 1 and dp["put_bytes_per_s"] > 0
+    if verb == "flightcapture":
+        assert dp["id"].startswith("20251009T000000-manual-7__http-127.0.0.1-")
+    if verb == "flightlist":
+        assert len(dp["bundles"]) == len(dj["bundles"]) == 1
+    if verb in ("listen", "trace"):
+        assert dp == dj == "application/json"
 
 
 def test_unported_peer_routes_are_every_other_jax_peer_route():
+    """No peer route is left unported: the port's peer app registers every
+    route of the JAX package's."""
     import inspect
-    import re
 
     from minio_tpu.dist import peer as jax_peer
 
@@ -344,9 +429,8 @@ def test_unported_peer_routes_are_every_other_jax_peer_route():
         names = set(re.findall(r'^\s+"([a-z]+)": h_', src, re.M))
         return names | set(re.findall(r'add_post\("/([a-z]+)"', src))
 
-    unported = {name for name, _ in NOT_PORTED_PEER_ROUTES}
-    assert routes(port_peer) | unported == routes(jax_peer)
-    assert not routes(port_peer) & unported
+    assert routes(port_peer) == routes(jax_peer)
+    assert set(PEER_VERBS) <= routes(port_peer)
 
 
 def test_remote_drives_and_lockers_point_at_the_peer(clusters):
@@ -427,10 +511,60 @@ def test_mixed_jax_and_port_cluster(tmp_path):
                 assert writer.put_object("mixed", f"{key}-{size}", BODIES[size]).status_code == 200
                 r = reader.get_object("mixed", f"{key}-{size}")
                 assert (r.status_code, r.content == BODIES[size]) == (200, True), (key, size)
+        # A port coordinator's speedtest fans out to the JAX peer and back.
+        r = cp.request("POST", f"{ADMIN}/speedtest/object",
+                       body=json.dumps({"size": 65536, "concurrency": 1, "max_concurrency": 1}).encode())
+        assert r.status_code == 200, r.text
+        report = r.json()
+        assert sorted(report["nodes"]) == sorted(urls) and report["ok"], report
+        assert report["scaling"]["nodes"] == 2
+        # Listen and trace streams merge across the two packages: a watcher
+        # on one node sees what the other node did.
+        heard = lambda lines: any(json.loads(x)["Key"].startswith("mixed/listen-") for x in lines)  # noqa: E731
+        traced = lambda lines: any(json.loads(x).get("name") == "PutObject" for x in lines)  # noqa: E731
+        for watch, writer, path, query, done in (
+            (cp, cj, "/mixed", [("events", "s3:ObjectCreated:*"), ("prefix", "listen-")], heard),
+            (cj, cp, "/mixed", [("events", "s3:ObjectCreated:*"), ("prefix", "listen-")], heard),
+            (cj, cp, f"{ADMIN}/trace", [], traced),
+        ):
+            lines = _watch(watch, path, query, lambda i: writer.put_object("mixed", f"listen-{i}", b"ev"), done)
+            assert done(lines), (path, lines[:5])
     finally:
         for s in served:
             s.stop()
         codec.close()
+
+
+def _watch(client: S3TestClient, path: str, query: list, act, done, timeout: float = 20.0) -> list[bytes]:
+    """Open a stream on `client`, call act(i) every 0.3 s (the peers' streams
+    attach after the watcher's 200) until done(lines read) holds, and return
+    the record lines read; the client closes the stream."""
+    r = client.request("GET", path, query=query, stream=True)
+    assert r.status_code == 200, r.text
+    lines: list[bytes] = []
+
+    def read():
+        try:
+            for line in r.iter_lines():
+                if line.strip():
+                    lines.append(line.strip())
+        except Exception:  # noqa: BLE001 - the stream closes under the reader
+            pass
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + timeout
+        i = 0
+        while not done(list(lines)) and time.monotonic() < deadline:
+            act(i)
+            i += 1
+            time.sleep(0.3)
+        time.sleep(0.3)
+    finally:
+        r.close()
+        t.join(5)
+    return list(lines)
 
 
 def test_closed_node_does_not_leave_its_codec_as_the_default(tmp_path):

@@ -545,6 +545,16 @@ def test_import_checks_cover_distribution():
     assert not hasattr(erasure, "_NamespaceLock")
 
 
+def test_import_checks_cover_events_and_operations():
+    mods = _port_modules()
+    for m in (
+        "control.events", "control.event_targets", "api.streams", "control.bandwidth", "control.metrics",
+        "control.selftest", "control.health", "control.flight", "control.update",
+    ):
+        assert f"minio_tpu_torch.{m}" in mods
+        assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"
@@ -606,6 +616,34 @@ def test_cuda_rs_kernel_matches_plain(cuda_device, s):
         ov = obuf[(7 * off + 3) % 16 :][: 2 * r * s].view(2, r, s)
         rs_cuda.apply(xv, coeffs, out=ov)
         assert torch.equal(ov, rs_cuda.plain(xv, coeffs)), f"offset {off}, R {r}"
+
+
+@pytest.mark.cuda
+def test_cuda_rs_launches_from_threads_with_different_k(cuda_device):
+    """The degraded GET launches reconstructs of 12+4 and 14+2 objects from
+    many threads at once; each K asks the kernel for another amount of
+    dynamic shared memory, a limit every thread shares. No launch may fail
+    or differ."""
+    import concurrent.futures as cf
+
+    gen = torch.Generator().manual_seed(7)
+    cases = []
+    for k, m, lost in ((12, 4, (0, 5, 12, 15)), (14, 2, (3, 15))):
+        x = torch.randint(0, 256, (2, k, 4096), dtype=torch.uint8, generator=gen).to(cuda_device)
+        present = tuple(i not in lost for i in range(k + m))
+        for r in range(1, len(lost) + 1):
+            c = rs_matrix.reconstruct_rows(k, m, present, lost[:r])
+            cases.append((x, c, rs_cuda.plain(x, c)))
+
+    def hammer(t: int) -> int:
+        bad = 0
+        for i in range(1000):
+            x, c, want = cases[(t + i * (1 + t % 5)) % len(cases)]
+            bad += not torch.equal(rs_cuda.apply(x, c), want)
+        return bad
+
+    with cf.ThreadPoolExecutor(8) as ex:
+        assert sum(ex.map(hammer, range(8))) == 0
 
 
 # N = 16 is the GET verify batch (one block), 17 leaves a part-filled block,

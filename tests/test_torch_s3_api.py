@@ -3,7 +3,8 @@ package's front over real sockets.
 
 Both packages get the same deployment (one pool of 2 sets x 4 drives on the
 same format.json) behind their own S3Server on a ThreadedServer, with the
-same root credentials and the same static KMS master key. The port runs
+same root credentials, the same static KMS master key and an event
+notifier each (ListenNotification streams are compared). The port runs
 its BatchingDeviceCodec on device="cpu" (the kernels' plain torch
 versions), the JAX package its HostCodec. One scripted list of signed
 requests, with bodies made from a numpy seed, goes to both servers, each
@@ -49,6 +50,7 @@ import pytest
 import minio_tpu_torch
 from minio_tpu.api.server import S3Server as JaxS3Server
 from minio_tpu.api.server import ThreadedServer as JaxThreadedServer
+from minio_tpu.control.events import EventNotifier as JaxEventNotifier
 from minio_tpu.control.iam import IAMSys as JaxIAMSys
 from minio_tpu.control.kms import StaticKeyKMS as JaxStaticKeyKMS
 from minio_tpu.object.codec import HostCodec as JaxHostCodec
@@ -58,6 +60,7 @@ from minio_tpu.storage import format as jax_format
 from minio_tpu.storage.local import LocalDrive as JaxLocalDrive
 from minio_tpu_torch.api import auth, postpolicy, sigv2, streaming
 from minio_tpu_torch.api.server import S3Server, ThreadedServer
+from minio_tpu_torch.control.events import EventNotifier
 from minio_tpu_torch.control.iam import IAMSys
 from minio_tpu_torch.control.kms import StaticKeyKMS
 from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
@@ -551,9 +554,41 @@ step("expired-deadline-absent")(lambda c: c.send("GET", "/bkt", query=[("prefix"
 step("delete-non-empty-bucket")(lambda c: c.send("DELETE", "/bkt"))
 step("method-not-allowed")(lambda c: c.send("POST", "/bkt/size/tiny"))
 
+
+
+def _listen(c: Client, path: str) -> Resp:
+    """ListenNotification on `path`: open the stream, PUT one object under
+    listen/ and read the first record the stream sends; then close it and
+    delete the object. The record's eventTime (the emit's wall clock) is
+    compared by its shape."""
+    query = [("events", "s3:ObjectCreated:*"), ("prefix", "listen/")]
+    headers = auth.sign_request(auth.Credentials(*ROOT), "GET", path, query, {"host": c.host}, b"")
+    headers.pop("host")
+    conn = http.client.HTTPConnection(c.host, timeout=20)
+    try:
+        conn.request("GET", path + "?" + urllib.parse.urlencode(query), headers=headers)
+        r = conn.getresponse()
+        if r.status != 200:
+            return Resp(r.status, {k.lower(): v for k, v in r.getheaders()}, r.read())
+        key = f"listen/{path.strip('/') or 'root'}"
+        assert _put(c, key, BODIES["tiny"]).status == 200
+        line = b""
+        while not line.strip():
+            line = r.readline()
+        record = json.loads(line)
+        rec = record["Records"][0]
+        rec["eventTime"] = _shape(rec["eventTime"])
+        return Resp(r.status, {"content-type": r.getheader("Content-Type")},
+                    json.dumps(record, sort_keys=True).encode())
+    finally:
+        conn.close()
+        c.send("DELETE", f"/bkt/listen/{path.strip('/') or 'root'}")
+
+
+# ListenNotification on both fronts, each with an EventNotifier
+step("listen-root")(lambda c: _listen(c, "/"))
+step("listen-bucket")(lambda c: _listen(c, "/bkt"))
 # routes whose answer is NotImplemented in both (hook left None)
-step("listen-root-no-notifier")(lambda c: c.send("GET", "/", query=[("events", "s3:ObjectCreated:*")]))
-step("listen-bucket-no-notifier")(lambda c: c.send("GET", "/bkt", query=[("events", "s3:ObjectCreated:*")]))
 step("restore-no-tiering")(lambda c: c.send("POST", "/bkt/size/tiny", query=[("restore", "")]))
 step("replication-reset-no-replication")(lambda c: c.send("PUT", "/bkt", query=[("replication-reset", "")]))
 
@@ -604,12 +639,12 @@ def _stack(pkg, root: str, formats, codec):
 JAX = SimpleNamespace(
     name="jax", LocalDrive=JaxLocalDrive, DriveFormat=jax_format.DriveFormat, ErasureSets=JaxErasureSets,
     ServerPools=JaxServerPools, S3Server=JaxS3Server, ThreadedServer=JaxThreadedServer, IAMSys=JaxIAMSys,
-    KMS=JaxStaticKeyKMS,
+    KMS=JaxStaticKeyKMS, EventNotifier=JaxEventNotifier,
 )
 PORT = SimpleNamespace(
     name="port", LocalDrive=LocalDrive, DriveFormat=port_format.DriveFormat,
     ErasureSets=minio_tpu_torch.ErasureSets, ServerPools=minio_tpu_torch.ServerPools, S3Server=S3Server,
-    ThreadedServer=ThreadedServer, IAMSys=IAMSys, KMS=StaticKeyKMS,
+    ThreadedServer=ThreadedServer, IAMSys=IAMSys, KMS=StaticKeyKMS, EventNotifier=EventNotifier,
 )
 
 
@@ -627,7 +662,9 @@ def run(tmp_path_factory):
         iam = pkg.IAMSys(*ROOT)
         kms = pkg.KMS("front-key", KMS_MASTER)
         for suffix, config in (("", None), ("-cfg", _Config())):
-            ts = pkg.ThreadedServer(pkg.S3Server(layer, iam, check_skew=True, kms=kms, config=config))
+            srv = pkg.S3Server(layer, iam, check_skew=True, kms=kms, config=config)
+            srv.notifier = pkg.EventNotifier()
+            ts = pkg.ThreadedServer(srv)
             servers.append(ts)
             clients[pkg.name + suffix] = Client(pkg.name + suffix, ts.start())
     try:

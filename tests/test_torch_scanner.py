@@ -26,6 +26,7 @@ import uuid
 import numpy as np
 import pytest
 
+from minio_tpu.control import events as jax_events
 from minio_tpu.control import scanner as jax_scanner
 from minio_tpu.control import usage as jax_usage
 from minio_tpu.control.bucket_meta import BucketMetadataSys as JaxBucketMetadataSys
@@ -36,6 +37,7 @@ from minio_tpu.object.pools import ServerPools as JaxServerPools
 from minio_tpu.object.sets import ErasureSets as JaxErasureSets
 from minio_tpu.storage import format as jax_format
 from minio_tpu.storage.local import LocalDrive as JaxLocalDrive
+from minio_tpu_torch.control import events as port_events
 from minio_tpu_torch.control import scanner as port_scanner
 from minio_tpu_torch.control import usage as port_usage
 from minio_tpu_torch.control.bucket_meta import BucketMetadataSys
@@ -243,9 +245,9 @@ class _Store:
 
 PKGS = {
     "jax": (JaxServerPools, JaxErasureSets, JaxLocalDrive, jax_format.DriveFormat, jax_erasure, jax_usage,
-            jax_scanner.DataScanner, JaxBucketMetadataSys),
+            jax_scanner.DataScanner, JaxBucketMetadataSys, jax_events.EventNotifier),
     "port": (ServerPools, ErasureSets, LocalDrive, fmt.DriveFormat, port_erasure, port_usage, DataScanner,
-             BucketMetadataSys),
+             BucketMetadataSys, port_events.EventNotifier),
 }
 
 
@@ -279,7 +281,7 @@ def scanned(tmp_path_factory, codec):
     mp = pytest.MonkeyPatch()
     out = {}
     try:
-        for name, (SP, ES, LD, DF, erasure_mod, usage_mod, Scanner, Meta) in PKGS.items():
+        for name, (SP, ES, LD, DF, erasure_mod, usage_mod, Scanner, Meta, Notifier) in PKGS.items():
             dirs = []
             for i, f in enumerate(formats):
                 d = os.path.join(root, name, f"d{i}")
@@ -299,7 +301,9 @@ def scanned(tmp_path_factory, codec):
                 s = layer.pools[0].get_set_index(key)
                 shutil.rmtree(os.path.join(dirs[s * SET_DRIVES + DAMAGE_DRIVE], "scan", key))
             store = _Store()
-            sc = Scanner(layer, bucket_meta=meta, heal_sample=3, store=store)
+            notifier = Notifier()
+            listen = notifier.listen_hub.subscribe()
+            sc = Scanner(layer, bucket_meta=meta, heal_sample=3, store=store, notifier=notifier)
             sc._sleeper.sleep = lambda s: None
             sampled = []
             real_heal = layer.heal_object
@@ -315,8 +319,11 @@ def scanned(tmp_path_factory, codec):
                 m.setattr(erasure_mod, "now", lambda: MOD_TIME + 1000)
                 m.setattr(uuid, "uuid4", _uuids(900))
                 sc.scan_cycle()
+            records = []
+            while not listen.empty():
+                records.append(listen.get_nowait())
             out[name] = {"layer": layer, "dirs": dirs, "scanner": sc, "store": store, "sampled": sampled,
-                         "damaged": damaged, "tree": _tree(dirs)}
+                         "damaged": damaged, "tree": _tree(dirs), "records": records}
         yield out
     finally:
         mp.undo()
@@ -356,6 +363,23 @@ def test_scan_expires_and_heals_the_same_objects(scanned):
         assert port["layer"].get_object("scan", key)[1] == OBJECTS[key]
 
 
+def test_scan_expiry_emits_the_jax_records(scanned):
+    """One s3:ObjectRemoved:Expired record per expired object, as the JAX
+    scanner emits them (control/scanner.py); eventTime is each emit's wall
+    clock, compared by its format."""
+    got = {}
+    for name in ("jax", "port"):
+        recs = []
+        for r in scanned[name]["records"]:
+            r = json.loads(json.dumps(r))
+            assert len(r["Records"][0].pop("eventTime")) == len("2025-10-09T08:53:20Z")
+            recs.append(r)
+        got[name] = recs
+    assert got["port"] == got["jax"]
+    assert [(r["EventName"], r["Key"]) for r in got["port"]] == [
+        ("s3:ObjectRemoved:Expired", f"scan/{k}") for k in OBJECTS if k.startswith("exp/")]
+
+
 def test_scan_leaves_the_same_files_on_every_drive(scanned):
     port, jax = scanned["port"]["tree"], scanned["jax"]["tree"]
     assert sorted(port) == sorted(jax)
@@ -387,6 +411,81 @@ def test_scanner_heals_damage(tmp_path, codec):
     assert s["objectsTotalSize"] == 205_000
     assert s["bucketsUsage"]["scanb"]["objectsCount"] == 6
     assert sc.objects_healed == 1
+
+
+def test_stop_abandons_a_cycle_in_flight(tmp_path, codec):
+    """A node's shutdown stops its scanner: stop() must not wait out a
+    throttled cycle over the whole namespace. The cycle in flight ends at
+    its next object and publishes no usage."""
+    import threading
+
+    formats = fmt.init_format(1, 4)
+    dirs = []
+    for i, f in enumerate(formats):
+        d = str(tmp_path / f"d{i}")
+        os.makedirs(d)
+        f.save(d)
+        dirs.append(d)
+    layer = ServerPools([ErasureSets.from_drives([LocalDrive(d) for d in dirs], formats[0], codec=codec)])
+    layer.make_bucket("slow")
+    for i in range(40):
+        layer.put_object("slow", f"o{i:02d}", b"s" * 100)
+    sc = DataScanner(layer, heal_sample=1 << 30, cycle_seconds=3600)
+    walked = threading.Event()
+
+    def slow_sleep(_work):
+        walked.set()
+        time.sleep(0.5)  # 40 objects: a 20 s cycle
+
+    sc._sleeper.sleep = slow_sleep
+    sc.start()
+    assert walked.wait(30)
+    t0 = time.monotonic()
+    sc.stop()
+    assert time.monotonic() - t0 < 3.0
+    assert not sc._thread.is_alive()
+    assert sc.cycles_completed == 0 and sc.usage.last_update == 0
+
+
+def test_stop_leaves_a_thread_stuck_in_a_call(tmp_path, codec):
+    """A cycle blocked inside one object's call (a peer that does not
+    answer) outlives stop()'s wait: stop() returns False after its timeout,
+    stack() names the blocked frame, and a second stop() (a node's close()
+    after the server's own) does not wait again."""
+    import threading
+
+    formats = fmt.init_format(1, 4)
+    dirs = []
+    for i, f in enumerate(formats):
+        d = str(tmp_path / f"d{i}")
+        os.makedirs(d)
+        f.save(d)
+        dirs.append(d)
+    layer = ServerPools([ErasureSets.from_drives([LocalDrive(d) for d in dirs], formats[0], codec=codec)])
+    layer.make_bucket("stuck")
+    layer.put_object("stuck", "o", b"s" * 100)
+    sc = DataScanner(layer, heal_sample=1 << 30, cycle_seconds=3600)
+    inside, release = threading.Event(), threading.Event()
+
+    def blocked_call(_work):
+        inside.set()
+        release.wait(30)
+
+    sc._sleeper.sleep = blocked_call
+    sc.start()
+    try:
+        assert inside.wait(30)
+        t0 = time.monotonic()
+        assert sc.stop(timeout=0.5) is False
+        assert 0.5 <= time.monotonic() - t0 < 3.0
+        assert "blocked_call" in sc.stack()
+        t0 = time.monotonic()
+        assert sc.stop(timeout=30) is False
+        assert time.monotonic() - t0 < 0.5
+    finally:
+        release.set()
+    sc._thread.join(10)
+    assert sc.stop() is True and sc.stack() == ""
 
 
 def test_scanner_aborts_stale_multipart_uploads(tmp_path, codec):
