@@ -190,8 +190,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      <root>/boot/p0/drive{00...31} and <root>/boot/p1/drive{00...15}
      (48 drives, two pools, three 12+4 sets): the online line must name
      BatchingDeviceCodec, 48 drives, 2 pools, 3 sets; the seconds from the
-     spawn to online and to the first 200 PUT (503 before it); 128 objects
-     of phase 5's size law from 16 threads and one 64 MiB aws-chunked PUT,
+     spawn to online and to the first 200 PUT (503 before it); 64 objects
+     of phase 5's size law (128 before the cut that made room for phase
+     13) from 16 threads and one 64 MiB aws-chunked PUT,
      read back byte-exact; /perf's stage ledger with codec encode-batch and
      verify-batch records and the probe on gpu; a user added over admin;
      SIGTERM rc 0 within 15 s; a restart, booted with
@@ -366,8 +367,56 @@ Phases, each of which raises on failure (the script then exits non-zero):
    The node's close() leaves no sender thread of its target and no armed
    flight recorder.
 
+13. Replication and identity between two deployments (control/replication.py,
+   site_replication.py, api/sts.py, jwt.py, console.py): MinIO's documented
+   bucket replication (minio/minio docs/bucket/replication/README.md) and
+   site replication (docs/site-replication/README.md) between two 16-drive
+   12+4 deployments on the one card. Site A is a port Node in this process
+   on the process's probe verdict, served over HTTP; site B is `python3 -m
+   minio_tpu_torch server` over 16 drives of its own, with its own probe
+   child and codec on the card. Requests come signed from phase 6's client
+   process (node 0 = A, node 1 = B). A's paths zero the kernel counts before
+   and read them after (both kernels, no host codec, no plain version); B's
+   kernels stand as its /metrics codec series before and after the phase.
+   - 13a (path replication_put): versioned buckets on both sites, a target
+     on A (POST /replication/target) and a rule with delete and
+     delete-marker replication; 64 objects of phase 5's law from 16 threads
+     and one 64 MiB object PUT on A. Every replica on B is byte-exact with
+     its source's version id, REPLICA on B and COMPLETED on A; the replica's
+     mtime is B's write time (neither package reads x-minio-source-mtime); a
+     delete marker and a version delete reach B; /replication/status and
+     ?replication-metrics read pending 0. Printed: the seconds from the last
+     acknowledged PUT to pending 0, objects/s and MiB/s, A's codec records.
+     Then a second target limited to 1 MiB/s and 18 objects of 1 MiB:
+     /bandwidth reports the limit; the drain takes no less than the 17 s
+     the limit allows past the token bucket's one-second burst (without the
+     throttle it takes 2-3 s); the rate /bandwidth observes is at most 1.1x
+     the limit.
+   - 13b (path replication_resync): 16 objects of 1 MiB lose their part
+     files on 4 of A's drives; PUT ?replication-reset to a third bucket on
+     B under an ExistingObjectReplication rule lands each byte-exact, with
+     A's reconstruct batches.
+   - 13c (path site_replication): A's and B's buckets of 13a-13b emptied
+     through S3 (a joining peer holds no bucket; A's replication rules go
+     first, so its deletes are not replicated), a bucket of 4 objects made
+     on A, POST
+     /site-replication/add: the bucket is seeded to B byte-exact; a bucket
+     made on B is on A; a policy, a user, a service account and an
+     /idp/ldap/policy mapping made on A are on B, a user made on B is on A;
+     32 objects PUT on B replicate to A byte-exact, REPLICA on A, one
+     version of each key on each site (no ping-pong); a bucket deleted on A
+     leaves B; /site-replication/info lists both online.
+   - 13d (path sts_put_get): STS AssumeRole on A signed by the user made on
+     B; its temporary credentials PUT and GET a 1 MiB object on A
+     byte-exact and are refused outside the user's policy; the console's
+     POST /api/login gives a Bearer JWT, GET /api/buckets lists what S3
+     lists, and a bucket created through the console on A is on B.
+   At the end B gets SIGTERM and exits 0 within 30 s, its log naming
+   replication and site replication closed; no thread of A's replication
+   outlives its node.
+
 The line before the last is a JSON object describing each kernel, with its
-launches by path (phases 7, 8a, 11 and 12 included); the last
+launches by path (phases 7, 8a, 11, 12 and 13 included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 
@@ -1789,7 +1838,6 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
     from minio_tpu_torch.api import auth, streaming
 
     hosts = [urllib.parse.urlparse(e).netloc for e in (endpoint, *others)]
-    host = hosts[0]
     creds = auth.Credentials(*HTTP_CREDS)
     objects: dict = {}
     local = threading.local()
@@ -1850,9 +1898,9 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
         objects[name] = memoryview(np.random.default_rng(seed).bytes(nbytes))
         return nbytes
 
-    def put(names: list, headers: dict, threads: int, where: dict | None = None) -> dict:
+    def put(names: list, headers: dict, threads: int, where: dict | None = None, bucket: str = "bench") -> dict:
         def one(name):
-            st, h, body, dt = send("PUT", f"/bench/{name}", headers=headers.get(name), body=objects[name],
+            st, h, body, dt = send("PUT", f"/{bucket}/{name}", headers=headers.get(name), body=objects[name],
                                    node=where[name] if where else 0)
             if st != 200:
                 raise AssertionError(f"PUT {name}: {st} {body[:300]!r}")
@@ -1875,9 +1923,9 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
         return {"acked": [n for n, st, _ in out if st == 200], "failed": {n: st for n, st, _ in out if st != 200},
                 "latencies": [dt for _, st, dt in out if st == 200], "wall": wall}
 
-    def get(names: list, threads: int, where: dict | None = None) -> dict:
+    def get(names: list, threads: int, where: dict | None = None, bucket: str = "bench") -> dict:
         def one(name):
-            st, _, body, dt = send("GET", f"/bench/{name}", node=where[name] if where else 0)
+            st, _, body, dt = send("GET", f"/{bucket}/{name}", node=where[name] if where else 0)
             if st != 200 or body != objects[name]:
                 raise AssertionError(f"GET {name}: status {st}, {len(body)} bytes, "
                                      f"want 200 and {len(objects[name])} equal bytes")
@@ -1969,17 +2017,70 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
         st, h, data, _ = send(method, path, query, {}, body, fresh=True, node=node)
         return st, json.loads(data) if h.get("content-type", "").startswith("application/json") else data[:4096]
 
-    def request_as(ak: str, sk: str, method: str, path: str, body=b"") -> tuple:
-        """One request signed with other credentials: (status, sha256 of the answer)."""
-        h = auth.sign_request(auth.Credentials(ak, sk), method, path, [], {"host": host}, body)
+    def request_as(ak: str, sk: str, method: str, path: str, body=b"", headers=None, node: int = 0,
+                   answer: bool = False) -> tuple:
+        """One request signed with other credentials: (status, sha256 of the
+        answer), or (status, the answer) with `answer`."""
+        h = {k.lower(): v for k, v in (headers or {}).items()}
+        h["host"] = hosts[node]
+        h = auth.sign_request(auth.Credentials(ak, sk), method, path, [], h, body)
         h.pop("host")
-        c = http.client.HTTPConnection(host, timeout=600)
+        c = http.client.HTTPConnection(hosts[node], timeout=600)
         try:
             c.request(method, urllib.parse.quote(path), body=body, headers=h)
             r = c.getresponse()
-            return r.status, hashlib.sha256(r.read()).hexdigest()
+            data = r.read()
+            return r.status, data if answer else hashlib.sha256(data).hexdigest()
         finally:
             c.close()
+
+    def heads(bucket: str, names: list, node: int, threads: int) -> dict:
+        """A HEAD of each object through one node: {name: (status, the
+        headers that name its version, mtime and replication status)}."""
+        keep = ("x-amz-version-id", "last-modified", "x-amz-replication-status", "content-length")
+
+        def one(name):
+            st, h, _, _ = send("HEAD", f"/{bucket}/{name}", node=node)
+            return name, (st, {k: h.get(k, "") for k in keep})
+        out, _ = fan_out(one, names, threads)
+        return dict(out)
+
+    def versions(bucket: str, node: int) -> list:
+        """Every (key, version id, is a delete marker) of a bucket through one node."""
+        out, key_marker, vid_marker = [], "", ""
+        while True:
+            q = [("versions", "")]
+            if key_marker:
+                q += [("key-marker", key_marker), ("version-id-marker", vid_marker)]
+            st, _, body, _ = send("GET", f"/{bucket}", q, fresh=True, node=node)
+            if st != 200:
+                raise AssertionError(f"ListObjectVersions {bucket}: {st} {body[:300]!r}")
+            root = ET.fromstring(body)
+            for el in root:
+                tag = el.tag.split("}")[-1]
+                if tag in ("Version", "DeleteMarker"):
+                    out.append((el.findtext("{*}Key"), el.findtext("{*}VersionId"), tag == "DeleteMarker"))
+            if root.findtext("{*}IsTruncated") != "true":
+                return out
+            key_marker = root.findtext("{*}NextKeyMarker")
+            vid_marker = root.findtext("{*}NextVersionIdMarker")
+
+    def empty_bucket(bucket: str, node: int) -> int:
+        """Delete every version and delete marker of a bucket through one
+        node (DeleteObjects with version ids, 1,000 a request), then the
+        bucket; the number of versions deleted."""
+        gone = versions(bucket, node)
+        for i in range(0, len(gone), 1000):
+            xml = "".join(f"<Object><Key>{key}</Key><VersionId>{vid}</VersionId></Object>"
+                          for key, vid, _ in gone[i:i + 1000])
+            st, _, body, _ = send("POST", f"/{bucket}", [("delete", "")], body=f"<Delete>{xml}</Delete>".encode(),
+                                  fresh=True, node=node)
+            if st != 200 or b"<Error>" in body:
+                raise AssertionError(f"DeleteObjects of {bucket}'s versions: {st} {body[:300]!r}")
+        st, _, body, _ = send("DELETE", f"/{bucket}", fresh=True, node=node)
+        if st != 204:
+            raise AssertionError(f"DELETE {bucket}: {st} {body[:300]!r}")
+        return len(gone)
 
     def put_race(name: str, seeds: list, nbytes: int) -> dict:
         """len(seeds) PUTs of one key, each with its own body, released at
@@ -2002,7 +2103,8 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
 
     ops = {"register": register, "register_bytes": register_bytes, "put": put, "put_some": put_some, "get": get,
            "multipart": multipart, "list_v2": list_v2, "ranges": ranges, "delete": delete, "request": request,
-           "admin": admin, "request_as": request_as, "put_race": put_race, "fetch": fetch}
+           "admin": admin, "request_as": request_as, "put_race": put_race, "fetch": fetch, "heads": heads,
+           "versions": versions, "empty_bucket": empty_bucket}
     while True:
         msg = conn.recv()
         if msg[0] == "stop":
@@ -2908,7 +3010,7 @@ def server_stages(client, label: str) -> dict:
     return perf
 
 
-def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_objects: int = 128,
+def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_objects: int = 64,
                    big_mib: int = 64, crash_mib: int = 4, max_size: int = 4 * MiB,
                    threads: int = HTTP_THREADS) -> None:
     """8b: the real CLI over 48 drives in two pools (32 + 16, three 12+4
@@ -4605,6 +4707,441 @@ def phase_events_ops(smi: str, root: str, tally: Tally, device: str = "cuda", n_
     return paths
 
 
+# -- phase 13: replication and identity between two deployments ----------------------------
+
+RP_RULE = (
+    "<Rule><ID>{rid}</ID><Status>Enabled</Status><Priority>1</Priority>"
+    "<DeleteMarkerReplication><Status>Enabled</Status></DeleteMarkerReplication>"
+    "<DeleteReplication><Status>Enabled</Status></DeleteReplication>{extra}"
+    "<Filter><Prefix></Prefix></Filter><Destination><Bucket>{arn}</Bucket></Destination></Rule>"
+)
+RP_EXISTING = "<ExistingObjectReplication><Status>Enabled</Status></ExistingObjectReplication>"
+RP_VERSIONING = (b'<VersioningConfiguration xmlns="http://s3.amazonaws.com/doc/2006-03-01/">'
+                 b"<Status>Enabled</Status></VersioningConfiguration>")
+RP_LDAP_DN = "uid=alice,ou=people,dc=example,dc=org"
+RP_USERS = {"a": ("site-user-a", "site-user-a-secret"), "b": ("site-user-b", "site-user-b-secret")}
+RP_POLICY = {"Version": "2012-10-17", "Statement": [
+    {"Effect": "Allow", "Action": ["s3:GetObject", "s3:PutObject"], "Resource": ["arn:aws:s3:::from-b/*"]}]}
+
+
+def _remove_bucket_parts(drive_dir: str, bucket: str, name: str) -> int:
+    removed = 0
+    for dirpath, _, files in os.walk(os.path.join(drive_dir, bucket, name)):
+        for f in files:
+            if f.startswith("part."):
+                os.remove(os.path.join(dirpath, f))
+                removed += 1
+    return removed
+
+
+def phase_replication(smi: str, root: str, tally: Tally, device: str = "cuda", n_objects: int = 64,
+                      big_mib: int = 64, max_size: int = 4 * MiB, threads: int = HTTP_THREADS, seed: int = 130,
+                      bw_limit: int = MiB, bw_objects: int = 18, bw_size: int = MiB, n_resync: int = 16,
+                      resync_size: int = MiB, n_site: int = 32, sts_size: int = MiB) -> dict:
+    """Phase 13: bucket and site replication between two 16-drive 12+4
+    deployments, STS and the console. Site A is a port Node in this process
+    (no codec=: the process's probe verdict) served over HTTP; site B is
+    `python3 -m minio_tpu_torch server` over its own 16 drives, with its own
+    probe and codec on the card. Requests come signed from phase 6's client
+    process (node 0 = A, node 1 = B). 13a (path replication_put): a target
+    on A for B's versioned bucket and a rule with delete and delete-marker
+    replication; n_objects of phase 5's law and one big_mib object PUT on A
+    replicate to B byte-exact with the source's version ids, REPLICA on B
+    and COMPLETED on A; a delete marker and a version delete reach B; the
+    status and ?replication-metrics read pending 0; then a second target
+    with a bandwidth limit of bw_limit and bw_objects of bw_size: /bandwidth
+    reports the limit, the drain takes no less than the limit allows past
+    the token bucket's one-second burst (unthrottled it takes a fraction of
+    that), and the rate /bandwidth observes is at most 1.1x the limit. 13b (path
+    replication_resync): n_resync objects lose the part files of 4 of A's
+    drives, and PUT ?replication-reset to a third bucket on B under an
+    ExistingObjectReplication rule lands every one byte-exact through A's
+    RS reconstruct. 13c (path site_replication): both sites' buckets
+    emptied through S3, a bucket seeded on A, POST /site-replication/add; buckets, a
+    policy, users, a service account and an LDAP policy mapping mirror,
+    n_site objects PUT
+    on B replicate to A with one version each and no ping-pong, a bucket
+    deleted on A leaves B. 13d (path sts_put_get): AssumeRole on A signed by
+    the user made on B; its credentials PUT and GET on A and are refused
+    outside the user's policy; the console's login, bucket list and a bucket
+    created through it that appears on B. Then B gets SIGTERM and exits 0
+    within 30 s, its log naming replication and site replication closed.
+    Returns the kernel counts of A's four paths; B's kernels stand as its
+    codec series, before and after."""
+    from minio_tpu_torch import cli, runtime
+    from minio_tpu_torch.control.perf import GLOBAL_PERF
+    from minio_tpu_torch.dist.node import Node
+
+    t_phase = time.perf_counter()
+    paths: dict = {}
+    base = os.path.join(root, "repl")
+    dirs_a = [os.path.join(base, "a", _drive_name(i)) for i in range(DRIVES)]
+    port_a, port_b = _free_port(), _free_port()
+    url_a, url_b = f"http://127.0.0.1:{port_a}", f"http://127.0.0.1:{port_b}"
+    t = time.perf_counter()
+    site_b = CliServer([os.path.join(base, "b", "drive{00...15}"), "--url", url_b]
+                       + (["--device", "cpu"] if device == "cpu" else []), port_b)
+    node = Node(dirs_a, url=url_a, root_user=HTTP_CREDS[0], root_password=HTTP_CREDS[1], device=device)
+    stop = threading.Event()
+    thread, errs = cli._run_app_until(node.make_app(), "127.0.0.1", port_a, stop)
+    if errs:
+        raise AssertionError(f"13: site A's app did not start: {errs}")
+    client = None
+    b_stopped = False
+    try:
+        node.build()
+        a_ready = time.perf_counter() - t
+        b_online, b_line = site_b.online()
+        codec = node.codec
+        if type(codec).__name__ != "BatchingDeviceCodec" or codec.device.type != device:
+            raise AssertionError(f"13: site A serves {type(codec).__name__} on {getattr(codec, 'device', '?')}")
+        want_probe = "PROBE_OK gpu" if device == "cuda" else None
+        if b_line.get("codec") != "BatchingDeviceCodec" or b_line.get("drives") != DRIVES or \
+                (want_probe and not str(b_line.get("probe", "")).startswith(want_probe)):
+            raise AssertionError(f"13: site B's online line {b_line}")
+        log(f"13 sites up: A in this process in {a_ready:.2f} s ({type(codec).__name__} on {codec.device}), B "
+            f"online {b_online:.2f} s after its spawn ({b_line.get('probe', 'no probe')})")
+        client = HttpClient(url_a, (url_b,))
+
+        def admin(method: str, path: str, doc=None, query=(), node_i: int = 0, want: int = 200):
+            st, out = client.call("admin", method, f"{ADMIN_PREFIX}{path}", query, doc, node_i)
+            if st != want:
+                raise AssertionError(f"13 admin {method} {path} on {'AB'[node_i]}: {st} {out}")
+            return out
+
+        def request(method: str, path: str, query=(), headers=None, body=b"", node_i: int = 0, want: int = 200,
+                    sign: bool = True) -> tuple:
+            st, h, out = client.call("request", method, path, query, headers, body, sign, False, node_i)
+            if st != want:
+                raise AssertionError(f"13 {method} {path} on {'AB'[node_i]}: {st}, want {want}: {out[:300]!r}")
+            return h, out
+
+        def versioned_bucket(bucket: str, node_i: int) -> None:
+            request("PUT", f"/{bucket}", node_i=node_i)
+            request("PUT", f"/{bucket}", [("versioning", "")], None, RP_VERSIONING, node_i=node_i)
+
+        def target(bucket: str, target_bucket: str, rid: str, extra: str = "", bandwidth: int = 0) -> str:
+            arn = admin("POST", "/replication/target", {
+                "bucket": bucket, "endpoint": url_b, "targetBucket": target_bucket, "accessKey": HTTP_CREDS[0],
+                "secretKey": HTTP_CREDS[1], "bandwidth": bandwidth})["arn"]
+            xml = ('<ReplicationConfiguration xmlns="http://s3.amazonaws.com/doc/2006-03-01/"><Role></Role>'
+                   + RP_RULE.format(rid=rid, extra=extra, arn=arn) + "</ReplicationConfiguration>")
+            request("PUT", f"/{bucket}", [("replication", "")], None, xml.encode())
+            return arn
+
+        def drained(node_i: int, timeout: float = 300.0) -> dict:
+            """Poll /replication/status until nothing is pending."""
+            last: dict = {}
+
+            def done():
+                last.update(admin("GET", "/replication/status", node_i=node_i))
+                return last["pending"] == 0
+            _wait_for(done, timeout, f"site {'AB'[node_i]}'s replication to drain")
+            return dict(last)
+
+        def b_codec() -> dict:
+            st, text = _signed_text(port_b, f"{ADMIN_PREFIX}/metrics")
+            if st != 200:
+                raise AssertionError(f"13 B /metrics: {st}")
+            return _codec_series(text)
+
+        def begin() -> float:
+            tally.reset()
+            GLOBAL_PERF.ledger.reset()
+            return time.perf_counter()
+
+        def end(path: str, need=("rs_gf_apply", "hh256")) -> dict:
+            counts = tally.read(path, need)
+            _no_host_fallback(codec, path)
+            paths[path] = counts
+            return counts
+
+        b_before = b_codec()
+
+        # 13a: bucket replication A -> B.
+        for node_i in (0, 1):
+            versioned_bucket("repl", node_i)
+        arn = target("repl", "repl", "to-b")
+        n = client.call("register", seed, n_objects, max_size, "repl")
+        traffic = Traffic(seed, n, max_size, "repl")
+        big = "big/object-64mib"
+        client.call("register_bytes", big, seed + 1, big_mib * MiB)
+        names = traffic.names + [big]
+        rrs = {k: {"x-amz-storage-class": "REDUCED_REDUNDANCY"} for k in traffic.names if traffic.storage_class[k]}
+        nbytes = sum(len(traffic.data[k]) for k in traffic.names) + big_mib * MiB
+        t0 = begin()
+        client.call("put", traffic.names, rrs, threads, None, "repl")
+        client.call("put", [big], {}, 1, None, "repl")
+        t_acked = time.perf_counter()
+        status = drained(0)
+        t_done = time.perf_counter()
+        counts = end("replication_put")
+        recs = _codec_ledger()
+        got = client.call("get", names, threads, {k: 1 for k in names}, "repl")
+        heads_a = client.call("heads", "repl", names, 0, threads)
+        heads_b = client.call("heads", "repl", names, 1, threads)
+        bad = [k for k in names if heads_a[k][0] != 200 or heads_b[k][0] != 200
+               or heads_b[k][1]["x-amz-version-id"] != heads_a[k][1]["x-amz-version-id"]
+               or not heads_a[k][1]["x-amz-version-id"]
+               or heads_a[k][1]["x-amz-replication-status"] != "COMPLETED"
+               or heads_b[k][1]["x-amz-replication-status"] != "REPLICA"]
+        if bad:
+            raise AssertionError(f"13a: {len(bad)} replicas differ, e.g. {bad[0]}: A {heads_a[bad[0]]} "
+                                 f"B {heads_b[bad[0]]}")
+        from email.utils import parsedate_to_datetime
+
+        lag = [(parsedate_to_datetime(heads_b[k][1]["last-modified"])
+                - parsedate_to_datetime(heads_a[k][1]["last-modified"])).total_seconds() for k in names]
+        if min(lag) < 0:
+            raise AssertionError(f"13a: a replica's mtime is before its source's ({min(lag)} s)")
+        if status["completed"] < len(names) or status["failed"]:
+            raise AssertionError(f"13a /replication/status {status}")
+        log(f"13a {len(names)} objects ({nbytes / MiB:.1f} MiB, {len(rrs)} REDUCED_REDUNDANCY and one "
+            f"{big_mib} MiB) PUT on A in {t_acked - t0:.2f} s; replication pending 0 {t_done - t_acked:.2f} s after "
+            f"the last acknowledged PUT: {len(names) / (t_done - t0):.1f} objects/s, "
+            f"{nbytes / MiB / (t_done - t0):.1f} MiB/s from the first PUT; every replica on B byte-exact "
+            f"({got['wall']:.2f} s), with its source's version id, REPLICA on B and COMPLETED on A; each replica's "
+            f"mtime is B's write time, {min(lag):.0f}-{max(lag):.0f} s after its source's (neither package's "
+            f"front reads x-minio-source-mtime); A's codec records {json.dumps(recs)}; launches "
+            f"{json.dumps(counts['launches'])}; /replication/status {json.dumps(status)} [{smi}]")
+        marked, vdel = traffic.names[0], traffic.names[1]
+        h, _ = request("DELETE", f"/repl/{marked}", want=204)
+        if h.get("x-amz-delete-marker") != "true":
+            raise AssertionError(f"13a: DELETE {marked} made no delete marker: {h}")
+        vid = heads_a[vdel][1]["x-amz-version-id"]
+        request("DELETE", f"/repl/{vdel}", [("versionId", vid)], want=204)
+        drained(0)
+        request("GET", f"/repl/{marked}", node_i=1, want=404)
+        request("GET", f"/repl/{vdel}", [("versionId", vid)], node_i=1, want=404)
+        listed = client.call("versions", "repl", 1)
+        markers = [(k, v) for k, v, dm in listed if dm]
+        if [k for k, _ in markers] != [marked] or any(k == vdel for k, _, _ in listed):
+            raise AssertionError(f"13a: B's versions hold markers {markers} and {vdel} "
+                                 f"{[x for x in listed if x[0] == vdel]}")
+        _, body = request("GET", "/repl", [("replication-metrics", "")])
+        rmetrics = json.loads(body)
+        status = admin("GET", "/replication/status")
+        if rmetrics["pending"] or status["pending"]:
+            raise AssertionError(f"13a: ?replication-metrics {rmetrics}, /replication/status {status}")
+        log(f"13a the delete marker of {marked} and the version delete of {vdel} reached B (its listing: one marker, "
+            f"no version of {vdel}); ?replication-metrics {json.dumps(rmetrics)}")
+
+        # 13a the bandwidth limit.
+        for node_i in (0, 1):
+            versioned_bucket("replbw", node_i)
+        bw_arn = target("replbw", "replbw", "bw", bandwidth=bw_limit)
+        bw_names = [f"bw/object-{i:02d}" for i in range(bw_objects)]
+        for i, k in enumerate(bw_names):
+            client.call("register_bytes", k, seed + 100 + i, bw_size)
+        t0 = time.perf_counter()
+        out = client.call("put", bw_names, {}, threads, None, "replbw")
+        t_first_ack = t0 + min(out["latencies"])
+        drained(0)
+        t_done = time.perf_counter()
+        report = admin("GET", "/bandwidth", None, [("bucket", "replbw")])["replbw"][bw_arn]
+        sent = bw_objects * bw_size
+        burst = bw_limit  # the token bucket holds one second of the limit
+        # The token bucket, made at the first replica, lets at most burst +
+        # limit x t through in t seconds, so the drain takes at least
+        # (sent - burst) / limit; unthrottled it takes a fraction of that.
+        drain, floor = t_done - t_first_ack, (sent - burst) / bw_limit
+        observed = report["currentBandwidthInBytesPerSecond"]
+        if report["limitInBytesPerSecond"] != bw_limit or drain < 0.9 * floor or observed > 1.1 * bw_limit:
+            raise AssertionError(f"13a /bandwidth {report}: {sent / MiB:g} MiB drained {drain:.2f} s after the first "
+                                 f"acknowledged PUT, the limit of {bw_limit / MiB:g} MiB/s allows no less than "
+                                 f"{floor:.2f} s; observed {observed / bw_limit:.3f}x the limit")
+        client.call("get", bw_names, threads, {k: 1 for k in bw_names}, "replbw")
+        log(f"13a a target limited to {bw_limit / MiB:g} MiB/s: {sent / MiB:g} MiB in {bw_objects} objects "
+            f"replicated {drain:.2f} s after the first acknowledged PUT (the limit allows no less than {floor:.2f} s "
+            f"past its one-second burst), {(sent - burst) / MiB / drain:.3f} MiB/s past the burst; /bandwidth "
+            f"reports limit {report['limitInBytesPerSecond']} B/s, observed {observed / MiB:.3f} MiB/s "
+            f"({observed / bw_limit:.3f}x the limit); replicas byte-exact")
+
+        # 13b: a resync through a degraded source.
+        versioned_bucket("resync", 0)
+        versioned_bucket("replica3", 1)
+        rs_names = [f"resync/object-{i:02d}" for i in range(n_resync)]
+        for i, k in enumerate(rs_names):
+            client.call("register_bytes", k, seed + 200 + i, resync_size + 37 * i)
+        client.call("put", rs_names, {}, threads, None, "resync")
+        removed = sum(_remove_bucket_parts(dirs_a[i], "resync", k) for i in (1, 6, 11, 14) for k in rs_names)
+        target("resync", "replica3", "existing", RP_EXISTING)
+        t0 = begin()
+        _, body = request("PUT", "/resync", [("replication-reset", "")])
+        queued = json.loads(body)["queued"]
+        drained(0)
+        wall = time.perf_counter() - t0
+        counts = end("replication_resync")
+        recs = _codec_ledger()
+        client.call("get", rs_names, threads, {k: 1 for k in rs_names}, "replica3")
+        if queued != n_resync or not recs.get("reconstruct-batch"):
+            raise AssertionError(f"13b: {queued} queued, codec records {recs}")
+        log(f"13b {n_resync} objects with {removed} part files gone from 4 of A's drives: PUT ?replication-reset "
+            f"queued {queued}, all on B's third bucket byte-exact in {wall:.2f} s; A's codec records "
+            f"{json.dumps(recs)}; launches {json.dumps(counts['launches'])} [{smi}]")
+
+        # 13c: site replication.
+        # A site joins empty, and the join seeds only the bucket made for it:
+        # the buckets of 13a and 13b go through S3 on both sites (every
+        # version, then the bucket, whose delete takes its targets with it).
+        # A's replication rules go first, so its deletes are not replicated.
+        t0 = time.perf_counter()
+        marks: dict = {}
+
+        def mark(label: str) -> None:
+            marks[label] = round(time.perf_counter() - t0, 2)
+
+        for b in ("repl", "replbw", "resync"):
+            request("DELETE", f"/{b}", [("replication", "")], want=204)
+        emptied = {f"A/{b}": client.call("empty_bucket", b, 0) for b in ("repl", "replbw", "resync")}
+        emptied.update({f"B/{b}": client.call("empty_bucket", b, 1) for b in ("repl", "replbw", "replica3")})
+        mark("emptied")
+        seeded = [f"seed/object-{i}" for i in range(4)]
+        for i, k in enumerate(seeded):
+            client.call("register_bytes", k, seed + 300 + i, 200_000 + i)
+        request("PUT", "/seeded")
+        client.call("put", seeded, {}, 4, None, "seeded")
+        begin()
+        joined = admin("POST", "/site-replication/add", {"sites": [
+            {"name": "site-a", "endpoint": url_a, "access_key": HTTP_CREDS[0], "secret_key": HTTP_CREDS[1]},
+            {"name": "site-b", "endpoint": url_b, "access_key": HTTP_CREDS[0], "secret_key": HTTP_CREDS[1]}]})
+        mark("joined")
+        request("HEAD", "/seeded", node_i=1)
+        drained(0)
+        client.call("get", seeded, 4, {k: 1 for k in seeded}, "seeded")
+        mark("seeded on B")
+        request("PUT", "/from-b", node_i=1)
+        request("HEAD", "/from-b")
+        admin("PUT", "/policies/site-rw", RP_POLICY)
+        ak_a, sk_a = RP_USERS["a"]
+        admin("POST", "/users", {"accessKey": ak_a, "secretKey": sk_a, "policies": ["site-rw"]})
+        sa = admin("POST", "/service-accounts", {"parent": ak_a})
+        admin("PUT", "/idp/ldap/policy", {"dn": RP_LDAP_DN, "policies": ["site-rw"]})
+        ak_b, sk_b = RP_USERS["b"]
+        admin("POST", "/users", {"accessKey": ak_b, "secretKey": sk_b, "policies": ["site-rw"]}, node_i=1)
+        users_b, users_a = admin("GET", "/users", node_i=1), admin("GET", "/users")
+        if "site-rw" not in admin("GET", "/policies", node_i=1) or \
+                users_b.get(ak_a, {}).get("policies") != ["site-rw"] or sa["accessKey"] not in users_b or \
+                admin("GET", "/idp/ldap/policy", node_i=1).get(RP_LDAP_DN) != ["site-rw"] or \
+                users_a.get(ak_b, {}).get("policies") != ["site-rw"]:
+            raise AssertionError(f"13c: IAM on B {users_b}, on A {users_a}")
+        mark("IAM mirrored")
+        m = client.call("register", seed + 400, n_site, max_size, "site")
+        site_names = Traffic(seed + 400, m, max_size, "site").names
+        client.call("put", site_names, {}, threads, {k: 1 for k in site_names}, "from-b")
+        mark("PUT on B")
+        drained(1)
+        mark("B drained")
+        drained(0)
+        drained(1)  # nothing came back
+        client.call("get", site_names, threads, None, "from-b")
+        heads_a = client.call("heads", "from-b", site_names, 0, threads)
+        per_site = [collections.Counter(k for k, _, _ in client.call("versions", "from-b", i)) for i in (0, 1)]
+        bad = [k for k in site_names if heads_a[k][1]["x-amz-replication-status"] != "REPLICA"
+               or per_site[0][k] != 1 or per_site[1][k] != 1]
+        if bad:
+            raise AssertionError(f"13c: {bad[0]} on A {heads_a[bad[0]]}, versions A {per_site[0][bad[0]]} "
+                                 f"B {per_site[1][bad[0]]}")
+        mark("objects checked")
+        request("PUT", "/shortlived")
+        request("HEAD", "/shortlived", node_i=1)
+        request("DELETE", "/shortlived", want=204)
+        request("HEAD", "/shortlived", node_i=1, want=404)
+        info = admin("GET", "/site-replication/info")
+        if not info["enabled"] or sorted((s["name"], s["self"], s.get("online", True)) for s in info["sites"]) != \
+                [("site-a", True, True), ("site-b", False, True)]:
+            raise AssertionError(f"13c /site-replication/info {info}")
+        counts = end("site_replication")
+        recs = _codec_ledger()
+        log(f"13c both sites emptied through S3 ({json.dumps(emptied)} versions deleted), a bucket of "
+            f"{len(seeded)} objects made on "
+            f"A, POST /site-replication/add: {json.dumps(joined['synced'])}; seeded to B byte-exact; a bucket made "
+            f"on B is on A, one deleted on A leaves B; policy site-rw, user {ak_a}, service account "
+            f"{sa['accessKey']} and the LDAP mapping of {RP_LDAP_DN} made on A are on B, user {ak_b} made on B "
+            f"is on A; {m} objects PUT on B are on A byte-exact, REPLICA on A, one version of each on each site; "
+            f"/site-replication/info lists both online; {time.perf_counter() - t0:.2f} s (seconds at each step: "
+            f"{json.dumps(marks)}); A's codec records "
+            f"{json.dumps(recs)}; launches {json.dumps(counts['launches'])} [{smi}]")
+
+        # 13d: STS from replicated IAM, and the console.
+        t0 = begin()
+        form = b"Action=AssumeRole&Version=2011-06-15&DurationSeconds=900"
+        st, answer = client.call("request_as", ak_b, sk_b, "POST", "/", form,
+                                 {"content-type": "application/x-www-form-urlencoded"}, 0, True)
+        if st != 200:
+            raise AssertionError(f"13d AssumeRole as {ak_b}: {st} {answer[:300]!r}")
+        xml = ET.fromstring(answer)
+        temp = (xml.findtext(".//{*}AccessKeyId"), xml.findtext(".//{*}SecretAccessKey"))
+        obj = "sts/object"
+        data = np.random.default_rng(seed + 500).bytes(sts_size + 37)
+        st_put, _ = client.call("request_as", *temp, "PUT", f"/from-b/{obj}", data)
+        st_get, digest = client.call("request_as", *temp, "GET", f"/from-b/{obj}")
+        st_out, _ = client.call("request_as", *temp, "PUT", "/seeded/outside", b"denied")
+        st_list, _ = client.call("request_as", *temp, "GET", "/")
+        if (st_put, st_get, digest, st_out, st_list) != (200, 200, hashlib.sha256(data).hexdigest(), 403, 403):
+            raise AssertionError(f"13d temporary credentials: PUT {st_put}, GET {st_get} (sha256 match "
+                                 f"{digest == hashlib.sha256(data).hexdigest()}), outside PUT {st_out}, "
+                                 f"ListBuckets {st_list}")
+        counts = end("sts_put_get")
+        wall = time.perf_counter() - t0
+        login = json.dumps({"accessKey": HTTP_CREDS[0], "secretKey": HTTP_CREDS[1]}).encode()
+        _, body = request("POST", "/mtpu/console/api/login", (), {"content-type": "application/json"}, login,
+                          sign=False)
+        token = json.loads(body)["token"]
+        bearer = {"authorization": f"Bearer {token}"}
+        _, body = request("GET", "/mtpu/console/api/buckets", (), bearer, sign=False)
+        console_buckets = sorted(b["name"] for b in json.loads(body)["buckets"])
+        _, body = request("GET", "/")
+        s3_buckets = sorted(e.findtext("{*}Name") for e in ET.fromstring(body).iter() if e.tag.endswith("}Bucket"))
+        request("POST", "/mtpu/console/api/buckets", (), {**bearer, "content-type": "application/json"},
+                json.dumps({"name": "console-made"}).encode(), sign=False)
+        request("HEAD", "/console-made", node_i=1)
+        if console_buckets != s3_buckets or token.count(".") != 2:
+            raise AssertionError(f"13d console buckets {console_buckets}, S3 {s3_buckets}")
+        drained(0)
+        drained(1)
+        log(f"13d AssumeRole on A signed by {ak_b} (made on B, on A by site replication): its temporary "
+            f"credentials PUT and GET {len(data)} bytes on A byte-exact and are refused outside site-rw (PUT to "
+            f"another bucket 403, ListBuckets 403) in {wall:.2f} s; launches {json.dumps(counts['launches'])}; "
+            f"console login gave a Bearer JWT, /api/buckets lists what S3 lists ({console_buckets}), and a bucket "
+            f"the console made on A is on B")
+
+        b_after = b_codec()
+        grew = {name: b_after.get((name, ""), 0.0) - b_before.get((name, ""), 0.0) for name in (
+            "minio_tpu_codec_encode_batches_total", "minio_tpu_codec_small_batches_total",
+            "minio_tpu_codec_verify_batches_total", "minio_tpu_codec_recon_batches_total")}
+        fallback = {k: v for k, v in b_after.items() if k[0] == "minio_tpu_codec_host_fallback_total" and v}
+        if not (grew["minio_tpu_codec_encode_batches_total"] + grew["minio_tpu_codec_small_batches_total"]) \
+                or not grew["minio_tpu_codec_verify_batches_total"] or fallback:
+            raise AssertionError(f"13: B's codec grew {grew}, host fallback {fallback}")
+        log(f"13 site B's minio_tpu_codec_* over the phase: before {json.dumps({k[0]: v for k, v in b_before.items() if not k[1]})}; "
+            f"after {json.dumps({k[0]: v for k, v in b_after.items() if not k[1]})}; grew {json.dumps(grew)} "
+            f"(an encode batch launches both kernels, a verify batch the hash); host fallback none")
+        rc, secs = site_b.stop(timeout=30.0)
+        b_stopped = True
+        text = site_b.text()
+        if rc != 0 or '"msg": "replication closed"' not in text or '"msg": "site replication closed"' not in text:
+            raise AssertionError(f"13: site B exited {rc} after {secs:.2f} s; its log's end:\n{text[-2000:]}")
+        log(f"13 site B: SIGTERM, exit 0 in {secs:.2f} s; its log shows replication and site replication closed")
+    finally:
+        if client is not None:
+            client.close()
+        if not b_stopped:
+            with contextlib.suppress(Exception):
+                site_b.stop(timeout=30.0)
+        stop.set()
+        thread.join(10)
+        node.close()
+        Node.close_all()
+        runtime.shutdown_data_plane()
+    left = [t.name for t in threading.enumerate() if t.name.startswith(("repl-", "site-repl"))]
+    if left:
+        raise AssertionError(f"13: threads of site A's replication outlived its node: {left}")
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4660,6 +5197,8 @@ def main() -> int:
         log_phase_end("phase 11")
         paths.update(phase_events_ops(smi, root, tally))
         log_phase_end("phase 12")
+        paths.update(phase_replication(smi, root, tally))
+        log_phase_end("phase 13")
     finally:
         tally.uninstall()
         codec.close()

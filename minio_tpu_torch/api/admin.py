@@ -3,16 +3,15 @@
 Role of the reference's admin handlers (cmd/admin-handlers*.go, mounted at
 /minio/admin/v3), mounted at /mtpu/admin/v1; every call is SigV4-signed and
 authorized against the admin:* action namespace. The port serves every
-route of the JAX package's admin API but replication's: /info, /service,
-/config, the users/groups/policies/service-accounts routes (IAM only),
-/chaos, /heal, /perf, /perf/slow, the profiling routes, /toplocks,
-/force-unlock, /inspect, /datausage, /quota, the pool lifecycle routes,
-the remote tier routes (/tiers*), /healthinfo, /bandwidth, the KMS routes,
-/update, /metrics, /timeseries, the speedtests, the flight recorder and
-/trace; the fan-outs reach every peer through the node's NotificationSys.
-The replication and site-replication routes are registered and answer 501
-NotImplemented naming the module they wait for (ROADMAP.md, Queue A item
-8.5).
+route of the JAX package's admin API: /info, /service, /config, the
+users/groups/policies/service-accounts routes (with their site-replication
+fan-out), /chaos, /heal, /perf, /perf/slow, the profiling routes,
+/toplocks, /force-unlock, /inspect, /datausage, /quota, the pool lifecycle
+routes, the remote tier routes (/tiers*), /healthinfo, /bandwidth, the KMS
+routes, /update, /metrics, /timeseries, the speedtests, the flight
+recorder, /trace, the replication targets and status (/replication/*) and
+site replication (/site-replication/*); the fan-outs reach every peer
+through the node's NotificationSys.
 """
 
 from __future__ import annotations
@@ -33,21 +32,8 @@ from .errors import S3Error
 
 ADMIN_PREFIX = "/mtpu/admin/v1"
 
-# The routes whose modules the port does not have yet, each with its module.
-NOT_PORTED_ROUTES: tuple[tuple[str, str, str], ...] = (
-    ("POST", "/site-replication/add", "control/site_replication.py"),
-    ("GET", "/site-replication/info", "control/site_replication.py"),
-    ("POST", "/site-replication/peer/join", "control/site_replication.py"),
-    ("POST", "/site-replication/peer/bucket", "control/site_replication.py"),
-    ("POST", "/site-replication/peer/meta", "control/site_replication.py"),
-    ("POST", "/site-replication/peer/iam", "control/site_replication.py"),
-    ("POST", "/site-replication/peer/install-replication", "control/site_replication.py"),
-    ("POST", "/replication/target", "control/replication.py"),
-    ("GET", "/replication/target", "control/replication.py"),
-    ("DELETE", "/replication/target", "control/replication.py"),
-    ("GET", "/replication/status", "control/replication.py"),
-    ("POST", "/replication/resync", "control/replication.py"),
-)
+# The JAX admin routes the port does not serve: none are left.
+NOT_PORTED_ROUTES: tuple[tuple[str, str, str], ...] = ()
 
 
 @dataclass
@@ -64,7 +50,7 @@ class AdminContext:
     metrics: object | None = None  # MetricsSys (/metrics, memcache stats in /perf)
     notification: object | None = None  # peer fan-out
     trace: object | None = None  # TraceSys (the /trace stream's hub)
-    bandwidth: object | None = None  # BandwidthMonitor (replica traffic rates)
+    replication: object | None = None  # ReplicationSys (bucket-replication.go)
     kms: object | None = None  # KMS (kms status / key checks)
     local_drives: object | None = None  # {path: StorageAPI} for the drive probe
     node_url: str = "local"  # this node's URL (keys selftest per-node results)
@@ -1199,16 +1185,34 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
             return {"node": out, "cluster": merge_profiles(snaps), "peers": peers}
         return out
 
+    # -- replication remote targets (bucket-targets.go admin surface) --------
+
+    def h_set_target(request, body):
+        repl = ctx.replication
+        if repl is None:
+            raise S3Error("NotImplemented")
+        doc = json.loads(body)
+        arn = repl.targets.set_target(
+            doc["bucket"],
+            doc["endpoint"],
+            doc["targetBucket"],
+            doc["accessKey"],
+            doc["secretKey"],
+            doc.get("region", "us-east-1"),
+            bandwidth=int(doc.get("bandwidth", 0)),
+        )
+        return {"arn": arn}
+
     def h_bandwidth(request, body):
         """Cluster-wide per-target replication bandwidth limits + observed
         rates (admin-handlers.go:1935 BandwidthMonitor aggregates across
         nodes): every node throttles its own replica traffic, so rates sum
         and limits merge across peer reports."""
-        # The node's monitor; replication (Queue A item 8.5) feeds it.
-        if ctx.bandwidth is None:
+        repl = ctx.replication
+        if repl is None:
             raise S3Error("NotImplemented")
         bucket = request.rel_url.query.get("bucket", "")
-        merged = ctx.bandwidth.report(bucket)
+        merged = repl.bandwidth.report(bucket)
         for peer in _peer_clients():
             try:
                 rep = peer.bandwidth(bucket)
@@ -1229,6 +1233,87 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
                         1,
                     )
         return merged
+
+    def h_list_targets(request, body):
+        repl = ctx.replication
+        if repl is None:
+            raise S3Error("NotImplemented")
+        bucket = request.rel_url.query.get("bucket", "")
+        out = []
+        for t in repl.targets.list_targets(bucket):
+            d = t.to_dict()
+            d.pop("secret_key", None)
+            out.append(d)
+        return out
+
+    def h_remove_target(request, body):
+        repl = ctx.replication
+        if repl is None:
+            raise S3Error("NotImplemented")
+        doc = json.loads(body)
+        repl.targets.remove_target(doc["bucket"], doc["arn"])
+        # The bandwidth report must not list the removed target forever.
+        repl.bandwidth.drop(doc["bucket"], doc["arn"])
+        return {}
+
+    def h_repl_status(request, body):
+        repl = ctx.replication
+        if repl is None:
+            raise S3Error("NotImplemented")
+        s = repl.stats
+        return {
+            "pending": repl.pending,
+            "completed": s.completed,
+            "failed": s.failed,
+            "replicatedBytes": s.replicated_bytes,
+        }
+
+    def h_repl_resync(request, body):
+        repl = ctx.replication
+        if repl is None:
+            raise S3Error("NotImplemented")
+        doc = json.loads(body)
+        n = repl.resync(doc["bucket"])
+        return {"queued": n}
+
+    # -- site replication (site-replication.go SRPeer* + operator APIs) ------
+
+    def _sr():
+        if ctx.site_repl is None:
+            raise S3Error("NotImplemented")
+        return ctx.site_repl
+
+    def h_sr_add(request, body):
+        doc = json.loads(body)
+        return _sr().add_peer_clusters(doc["sites"])
+
+    def h_sr_info(request, body):
+        return _sr().info()
+
+    def h_sr_peer_join(request, body):
+        doc = json.loads(body)
+        _sr().apply_join(doc["self_name"], doc["sites"])
+        return {"ok": True}
+
+    def h_sr_peer_bucket(request, body):
+        doc = json.loads(body)
+        _sr().apply_bucket(doc["op"], doc["bucket"])
+        return {"ok": True}
+
+    def h_sr_peer_meta(request, body):
+        doc = json.loads(body)
+        _sr().apply_meta(doc["bucket"], doc["meta"])
+        return {"ok": True}
+
+    def h_sr_peer_iam(request, body):
+        doc = json.loads(body)
+        _sr().apply_iam(doc["kind"], doc["payload"])
+        return {"ok": True}
+
+    def h_sr_peer_install_repl(request, body):
+        doc = json.loads(body)
+        _sr().apply_install_replication(doc["bucket"])
+        return {"ok": True}
 
     # -- trace streaming (admin-handlers.go:1103 role) -----------------------
 
@@ -1253,15 +1338,6 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
             ),
             content_type="application/x-ndjson",
         )
-
-    def not_ported(module: str):
-        def h(request, body):
-            raise S3Error(
-                "NotImplemented",
-                f"{request.method} {request.path} is not ported yet: it waits for {module}",
-            )
-
-        return h
 
     app.router.add_get("/info", handler(h_info))
     app.router.add_get("/config", handler(h_get_config))
@@ -1328,6 +1404,16 @@ def make_admin_app(ctx: AdminContext) -> web.Application:
     app.router.add_get("/flight", handler(h_flight_list))
     app.router.add_get("/flight/{id}", handler(h_flight_get))
     app.router.add_get("/trace", handler(h_trace, stream=True))
-    for method, path, module in NOT_PORTED_ROUTES:
-        app.router.add_route(method, path, handler(not_ported(module)))
+    app.router.add_post("/replication/target", handler(h_set_target))
+    app.router.add_get("/replication/target", handler(h_list_targets))
+    app.router.add_delete("/replication/target", handler(h_remove_target))
+    app.router.add_get("/replication/status", handler(h_repl_status))
+    app.router.add_post("/replication/resync", handler(h_repl_resync))
+    app.router.add_post("/site-replication/add", handler(h_sr_add))
+    app.router.add_get("/site-replication/info", handler(h_sr_info))
+    app.router.add_post("/site-replication/peer/join", handler(h_sr_peer_join))
+    app.router.add_post("/site-replication/peer/bucket", handler(h_sr_peer_bucket))
+    app.router.add_post("/site-replication/peer/meta", handler(h_sr_peer_meta))
+    app.router.add_post("/site-replication/peer/iam", handler(h_sr_peer_iam))
+    app.router.add_post("/site-replication/peer/install-replication", handler(h_sr_peer_install_repl))
     return app

@@ -16,9 +16,10 @@ streaming PUT and streaming GET plan, with the same bytes on the wire and
 on the drives, and the same instrumentation hooks: the request root span
 and its child spans, the ops/s ring, the degrade records, the copy-ledger
 hops, GLOBAL_LOGGER and the bucket events of `notifier` (control/events.py,
-with ListenNotification over api/streams.py). The routes whose modules are
-not ported yet answer NotImplemented from `_not_ported` (ROADMAP.md, Queue
-A item 8).
+with ListenNotification over api/streams.py), the replication and site
+replication hooks and STS (api/sts.py). SelectObjectContent, whose module is
+not ported yet, answers NotImplemented from `_not_ported` (ROADMAP.md, Queue
+A item 8.7).
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ _log = logging.getLogger(__name__)
 
 def _not_ported(route: str) -> S3Error:
     """The one answer of every route whose module this slice does not port
-    (ROADMAP.md, Queue A item 8): "sts" (api/sts.py) and "select"
-    (s3select). The error is the JAX front's bare NotImplemented."""
+    (ROADMAP.md, Queue A item 8.7): "select" (s3select). The error is the
+    JAX front's bare NotImplemented."""
     _log.debug("route not ported: %s", route)
     return S3Error("NotImplemented")
 
@@ -815,9 +816,13 @@ class S3Server:
         # signed principal may request temporary credentials
         # (sts-handlers.go AssumeRole: auth, not policy).
         if not bucket and request.method == "POST":
-            form = urllib.parse.parse_qs(body.decode())
+            from . import sts as sts_mod
+
+            form = sts_mod.parse_form(body)
             if "Action" in form:
-                raise _not_ported("sts")
+                return await asyncio.to_thread(
+                    sts_mod.handle_sts, self.iam, access_key, form, self.config, request
+                )
 
         action = policy_mod.s3_action(request.method, bucket, key, q)
         await asyncio.to_thread(self._authorize, access_key, action, bucket, key, request)

@@ -329,6 +329,14 @@ def serve(argv: list[str]) -> int:
     if busy:
         _log(a.quiet, a.json, msg="scanner still busy at shutdown", grace_s=SCANNER_GRACE_S,
              stack=node.scanner.stack())
+    # Replication, then site replication, as the JAX serve closes them. A
+    # replica send still waiting on a target is left behind like a busy
+    # scanner: its worker is a daemon thread.
+    for sub, what in ((node.replication, "replication"), (node.site_repl, "site replication")):
+        if sub is not None:
+            ended = sub.close()
+            _log(a.quiet, a.json, msg=f"{what} closed", ended=ended)
+            busy = busy or not ended
     node.close()
     shutdown_data_plane(node.codec)
     t.join(5)

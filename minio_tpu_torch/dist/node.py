@@ -12,10 +12,10 @@ erasure pools and the control plane, and serves S3 + admin + storage, lock
 and peer REST on one port.
 
 The pool manager (attach, decommission, rebalance), the data scanner,
-TierConfigMgr, metrics, the event notifier with its targets and the flight
-recorder are wired as the JAX node wires them. Left for later, each at its
-site below: disk/memory caches, replication, site replication, the console
-and the etcd IAM store (ROADMAP.md, Queue A items 8.5-8.8).
+TierConfigMgr, metrics, the event notifier with its targets, the flight
+recorder, bucket and site replication, the console and the etcd IAM store
+are wired as the JAX node wires them. Left for later, at its site below:
+the disk and memory caches (ROADMAP.md, Queue A item 8.8).
 """
 
 from __future__ import annotations
@@ -165,7 +165,8 @@ class Node:
         self.tiering = None
         self.metrics = None
         self.notifier = None
-        self.bandwidth = None
+        self.replication = None
+        self.site_repl = None
         self._quota_cache = None  # leader-persisted usage tree (non-leaders)
         self._quota_cache_ts = 0.0
 
@@ -340,11 +341,15 @@ class Node:
             pass
         # IAM durability (iam-object-store.go role): users/policies persist
         # through the erasure-backed config store (sealed with the root
-        # credential) and reload on boot. The etcd store (control/etcd.py)
-        # waits for Queue A item 8.6. A FAILED load (degraded quorum) disables
-        # persistence for this process instead of risking an empty snapshot
-        # overwriting the real one on the next mutation.
-        self.iam.store = store
+        # credential) and reload on boot -- or through etcd when configured
+        # (iam-etcd-store.go role; the reference prefers etcd whenever it
+        # is set, which is how federated/gateway deployments share IAM).
+        # A FAILED load (degraded quorum) disables persistence for this
+        # process instead of risking an empty snapshot overwriting the
+        # real one on the next mutation.
+        from ..control.etcd import etcd_store_from_env
+
+        self.iam.store = etcd_store_from_env() or store
         self.iam.ns_lock = self.ns_lock
         try:
             self.iam.load()
@@ -354,12 +359,13 @@ class Node:
             # fail loudly instead so the operator restores the credential.
             raise
         except errors.StorageError as e:
+            backend = "etcd" if self.iam.store is not store else "erasure config store"
             self.iam.store = None
             self.iam.ns_lock = None
             GLOBAL_LOGGER.error(
-                f"IAM store (erasure config store) unreadable at boot ({e}); IAM "
+                f"IAM store ({backend}) unreadable at boot ({e}); IAM "
                 "persistence DISABLED for this process -- identities created now "
-                "will not survive a restart. Restore the erasure config store and restart.",
+                f"will not survive a restart. Restore the {backend} and restart.",
                 exc=e,
             )
         # The disk and memory caches (object/cache.py, object/memcache.py)
@@ -372,7 +378,6 @@ class Node:
             kms=self.kms,
             config=self.config,
         )
-        from ..control.bandwidth import BandwidthMonitor
         from ..control.event_targets import configure_targets
         from ..control.events import EventNotifier
         from ..control.metrics import MetricsSys
@@ -396,9 +401,6 @@ class Node:
             GLOBAL_LOGGER.error(f"notify target {tid} disabled: {e}", exc=e)
 
         configure_targets(self.notifier, self.config, spool_root, on_error=_target_err)
-        # The replica traffic monitor behind admin /bandwidth; the
-        # replication workers of Queue A item 8.5 feed it.
-        self.bandwidth = BandwidthMonitor()
         s3.metrics = self.metrics
         s3.trace = self.trace
         s3.logger = self.logger
@@ -410,10 +412,35 @@ class Node:
         # Cluster-wide watcher streams: listen/trace responses merge every
         # peer's records (ListenNotification + admin trace peer subscription).
         s3.peer_notification = self.notification
-        # Replication and site replication wait for Queue A item 8.5.
         # Hard bucket quotas read the scanner's usage tree
         # (enforceBucketQuota, cmd/bucket-quota.go:112).
         s3.quota_usage = self._quota_usage
+        # Bucket replication: its workers read replicas through the pools
+        # (the erasure GET, so the card verifies and rebuilds them) and feed
+        # the one bandwidth monitor that admin /bandwidth, the peer verb and
+        # /metrics read. Site replication rides on it.
+        from ..control.replication import BucketTargetSys, ReplicationSys
+        from ..control.site_replication import SiteReplicationSys
+
+        self.replication = ReplicationSys(
+            self.pools,
+            s3.bucket_meta,
+            BucketTargetSys(s3.bucket_meta, kms=self.kms),
+            kms=self.kms,
+        )
+        s3.replication = self.replication
+        self.metrics.replication = self.replication
+        self.site_repl = SiteReplicationSys(
+            self.pools,
+            s3.bucket_meta,
+            self.iam,
+            self.replication.targets,
+            self.replication,
+            store,
+            self_endpoint=self.url,
+            notifier=self.notifier,
+        )
+        s3.site_repl = self.site_repl
         self.healmgr = HealManager(self.pools)
         self.mrf = MRFQueue(self.pools)
         # Feed the MRF from every erasure set: a put that met quorum but
@@ -464,8 +491,7 @@ class Node:
         )
         # Metrics sources for the node exposition (drive series come through
         # metrics.layer; these feed heal/scanner progress and cluster fan-out).
-        # The memory cache and replication read None until Queue A items 8.8
-        # and 8.5.
+        # The memory cache reads None until Queue A item 8.8.
         self.metrics.node_url = self.url
         self.metrics.notification = self.notification
         self.metrics.scanner = self.scanner
@@ -677,6 +703,10 @@ class Node:
         this node's, and the pumps of this node's listen streams.
         Idempotent, and safe on a node that never completed build() -- each
         subsystem is stopped only if it exists."""
+        for sub in ("site_repl", "replication"):
+            s = getattr(self, sub, None)
+            if s is not None:
+                s.close()
         for sub in ("poolmgr", "scanner", "disk_heal", "mrf", "healmgr"):
             s = getattr(self, sub, None)
             if s is not None:
@@ -735,7 +765,7 @@ class Node:
         handler and the admin routes 503 until the object layer is up, so
         peers can reach this node's storage REST during the format handshake
         (the reference starts its dist routers before waitForFormatErasure
-        too, server-main.go:495-521). The console waits for Queue A item 8.6."""
+        too, server-main.go:495-521)."""
         app = web.Application(client_max_size=1 << 31)
         app.add_subapp(STORAGE_PREFIX, make_storage_app(self.local_drives, self.token))
         app.add_subapp(LOCK_PREFIX, make_lock_app(self.locker, self.token))
@@ -743,6 +773,9 @@ class Node:
         from ..api.admin import ADMIN_PREFIX, make_admin_app
 
         app.add_subapp(ADMIN_PREFIX, make_admin_app(_LazyAdminContext(self)))
+        from ..api.console import CONSOLE_PREFIX, make_console_app
+
+        app.add_subapp(CONSOLE_PREFIX, make_console_app(_LazyAdminContext(self)))
 
         async def s3_entry(request: web.Request):
             if self.s3 is None:
@@ -755,10 +788,7 @@ class Node:
 
 class _LazyAdminContext:
     """Admin context resolving node components at request time, so the admin
-    router can be mounted before build() completes (it 503s until ready).
-    Site replication (Queue A item 8.5) reads None."""
-
-    site_repl = None
+    router can be mounted before build() completes (it 503s until ready)."""
 
     def __init__(self, node: "Node"):
         self._node = node
@@ -821,8 +851,16 @@ class _LazyAdminContext:
         return getattr(self._node, "trace", None)
 
     @property
-    def bandwidth(self):
-        return getattr(self._node, "bandwidth", None)
+    def replication(self):
+        return getattr(self._node, "replication", None)
+
+    @property
+    def site_repl(self):
+        return getattr(self._node, "site_repl", None)
+
+    @property
+    def notifier(self):
+        return getattr(self._node, "notifier", None)
 
     @property
     def kms(self):

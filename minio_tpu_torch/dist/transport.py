@@ -31,6 +31,13 @@ ERROR_HEADER = "X-Mtpu-Error"
 TOKEN_HEADER = "X-Mtpu-Token"
 TRACE_HEADER = tracing.TRACE_HEADER
 DEADLINE_HEADER = deadline.DEADLINE_HEADER
+# Seconds a call may spend opening its connection. A peer whose listener
+# accepts nothing (its accept queue full, or a process stopping without
+# closing it) drops the SYNs, and connect() would wait out the whole call
+# timeout: that held a stopping node's scanner past its shutdown grace. A
+# healthy connect takes well under a millisecond; this leaves room for one
+# SYN retransmission (1 s).
+CONNECT_TIMEOUT = 2.0
 
 
 def jitter(seconds: float, frac: float = 0.10) -> float:
@@ -211,6 +218,7 @@ class RestClient:
             headers[DEADLINE_HEADER] = f"{max(rem, 0.0):.3f}"
         t0 = time.monotonic()
         c0 = time.thread_time()
+        socket_timeout = (min(CONNECT_TIMEOUT, effective), effective)
         try:
             if body is not None:
                 r = self.session.post(
@@ -218,7 +226,7 @@ class RestClient:
                     params={k: str(v) for k, v in (args or {}).items()},
                     data=body,
                     headers=headers or None,
-                    timeout=effective,
+                    timeout=socket_timeout,
                     stream=stream,
                 )
             else:
@@ -227,7 +235,7 @@ class RestClient:
                     url,
                     data=msgpack.packb(args or {}, use_bin_type=True),
                     headers=headers,
-                    timeout=effective,
+                    timeout=socket_timeout,
                     stream=stream,
                 )
         except requests.RequestException as e:

@@ -12,9 +12,21 @@ time a pre-fork worker respawns, since every worker re-runs Node.build):
   * ``.../part.N.tmp.<pid>.<hex>``   -- multipart part stage files (the part
                                         was never published). Same pid rule.
   * ``<p>.tmp<rand>``                -- atomic write_all staging that never
-                                        reached os.replace. Always safe to GC
-                                        (the replace either happened or the
-                                        final file is untouched).
+                                        reached os.replace (the replace
+                                        either happened or the final file is
+                                        untouched). The name carries no pid,
+                                        so a file goes only once it has sat
+                                        unchanged for STAGING_GRACE_S: a live
+                                        write (a sibling worker's, a peer's
+                                        through this node's storage REST)
+                                        replaces its staging file within
+                                        milliseconds. Swept in the buckets
+                                        and, in the port, in the meta bucket
+                                        too: a process killed mid-commit of a
+                                        config-store object (IAM, the
+                                        scanner's usage, the tier journal)
+                                        leaves them there, and the JAX
+                                        package's scan never looks.
   * unreferenced data dirs           -- rename_data died between the data-dir
                                         rename and the xl.meta publish: shard
                                         files exist under the object dir but
@@ -37,6 +49,7 @@ from __future__ import annotations
 
 import os
 import re
+import time
 
 from ..control.sanitizer import san_lock
 from ..utils import errors
@@ -47,6 +60,11 @@ from .xlmeta import XLMeta
 _TMP_SUFFIX_RE = re.compile(r"\.tmp[0-9a-f]{8}$")
 _STAGE_INFIX_RE = re.compile(r"\.tmp\.(\d+)\.[0-9a-f]+$")
 _PART_FILE_RE = re.compile(r"^part\.\d+$")
+
+# A staging file unchanged this long since its last write is a dead
+# process's: an atomic write replaces its own within milliseconds.
+STAGING_GRACE_S = 10.0
+_STAGING_POLL_S = 0.1
 
 _COUNTER_KEYS = (
     "scans",            # recover_drive passes completed
@@ -117,8 +135,10 @@ def recover_drive(drive, meta_bucket: str = ".minio_tpu.sys") -> dict:
     _sweep_tmp(drive, meta_bucket)
     _sweep_multipart_stages(drive, meta_bucket)
     _sweep_selftest(drive)
+    staged = _meta_staging(drive, meta_bucket)
     for vol in _safe_vols(drive):
-        _sweep_volume(drive, vol.name)
+        staged += _sweep_volume(drive, vol.name)
+    _sweep_staging(staged)
     _bump("scans")
     after = counters()
     return {k: after[k] - before[k] for k in _COUNTER_KEYS}
@@ -186,14 +206,72 @@ def _sweep_multipart_stages(drive, meta_bucket: str) -> None:
     recurse("multipart")
 
 
-def _sweep_volume(drive, volume: str) -> None:
-    """Walk a bucket tree directly, GC'ing stale atomic-write staging files
-    and data dirs no xl.meta version references.
+def _meta_staging(drive, meta_bucket: str) -> list:
+    """The atomic-write staging files under the meta bucket, for
+    _sweep_staging. Only the `<final>.tmp<8 hex>` files: the meta bucket's
+    data dirs and prefixes belong to the tmp/ and multipart/ sweeps and to
+    the config store."""
+    root = drive._vol_path(meta_bucket)
+    return [(os.path.join(dirpath, name), None)
+            for dirpath, _, files in os.walk(root) for name in files if _TMP_SUFFIX_RE.search(name)]
+
+
+def _sweep_staging(staged: list) -> None:
+    """Remove the atomic-write staging files of `staged`, (path, root)
+    pairs, that no live write owns, then the prefix dirs each leaves empty
+    up to its root (None: none). A file that vanishes or changes while it is
+    watched belongs to a live write and is left alone; one unchanged for
+    STAGING_GRACE_S since its last write (or since it was first seen, if its
+    mtime lies ahead of the clock) goes. Young files are watched until then,
+    so a boot right after a crash still leaves no debris, and waits at most
+    STAGING_GRACE_S for it."""
+    seen: dict = {}
+    for path, root in staged:
+        try:
+            seen[path] = (os.stat(path).st_mtime_ns, root)
+        except OSError:
+            pass
+    t0 = time.monotonic()
+    while seen:
+        watched = time.monotonic() - t0
+        for path, (mtime, root) in list(seen.items()):
+            try:
+                now_mtime = os.stat(path).st_mtime_ns
+            except OSError:
+                del seen[path]  # published or removed by its writer
+                continue
+            if now_mtime != mtime:
+                del seen[path]  # still being written
+                continue
+            if time.time() - mtime / 1e9 < STAGING_GRACE_S and watched < STAGING_GRACE_S:
+                continue
+            del seen[path]
+            try:
+                os.remove(path)
+                _bump("tmp_files")
+            except OSError:
+                continue
+            parent = os.path.dirname(path)
+            while root is not None and parent != root:
+                try:
+                    os.rmdir(parent)  # only succeeds on an empty dir
+                except OSError:
+                    break
+                parent = os.path.dirname(parent)
+        if seen:
+            time.sleep(_STAGING_POLL_S)
+
+
+def _sweep_volume(drive, volume: str) -> list:
+    """Walk a bucket tree directly, GC'ing dead-owner stage files and data
+    dirs no xl.meta version references. Returns the atomic-write staging
+    files found, for _sweep_staging.
 
     Walks the filesystem rather than walk_dir because the debris is exactly
     what walk_dir is designed to skip (non-object files, dirs without
     xl.meta)."""
     root = drive._vol_path(volume)  # recovery is a LocalDrive-family concern
+    staged: list = []
 
     def recurse(dir_path: str) -> None:
         try:
@@ -216,9 +294,9 @@ def _sweep_volume(drive, volume: str) -> None:
             p = os.path.join(dir_path, name)
             if os.path.isfile(p):
                 m = _STAGE_INFIX_RE.search(name)
-                if _TMP_SUFFIX_RE.search(name) or (
-                    m and not _pid_alive(int(m.group(1)))
-                ):
+                if _TMP_SUFFIX_RE.search(name):
+                    staged.append((p, root))
+                elif m and not _pid_alive(int(m.group(1))):
                     try:
                         os.remove(p)
                         _bump("tmp_files")
@@ -263,6 +341,7 @@ def _sweep_volume(drive, volume: str) -> None:
                 pass
 
     recurse(root)
+    return staged
 
 
 def _is_orphan_data_dir(dir_path: str) -> bool:

@@ -1,6 +1,6 @@
-"""Phases 5 and 6 of chip_smoke.py at two sizes, in one process on one NVIDIA GPU.
+"""Phases 5 and 6 (or 8b) of chip_smoke.py at two sizes, in one process on one NVIDIA GPU.
 
-    python3 -m minio_tpu_torch.tools.smoke_cuts [--phase5-only | --phase6-old-gets]
+    python3 -m minio_tpu_torch.tools.smoke_cuts [--phase5-only | --phase6-old-gets | --phase8b]
 
 Run from the root of a checkout, where chip_smoke.py sits. It builds and
 times the kernels (chip_smoke.py's phases 1 and 2), then runs phase 5 (the
@@ -13,8 +13,11 @@ old objects in phase 6 both times). With --phase5-only it runs phase 5
 alone at those two sizes. With --phase6-old-gets it times phase 6's cut
 that also made room for phase 12: 768 objects both times, phase 6's GETs
 of phase 5's survivors at 128 now and 256 before. Every check of the
-phases holds at every size. Exits non-zero without a CUDA device. (The
-cuts for phases 10 and 11, from 2,048 to 1,024 and 768 objects and from
+phases holds at every size. With --phase8b it times phase 8b (the CLI
+deployment of 48 drives: boot, PUT, GET, SIGTERM, restart, crash and
+recovery boot) at 64 objects now and 128 before the cut that made room for
+phase 13. Exits non-zero without a CUDA device. (The cuts for phases 10
+and 11, from 2,048 to 1,024 and 768 objects and from
 512 to 256 old GETs, were timed by this tool at those sizes.)
 """
 
@@ -31,6 +34,7 @@ import torch
 
 SIZES = (("now", 512, 128), ("before the cut", 768, 128))
 OLD_GET_SIZES = (("now", 768, 128), ("before the cut", 768, 256))
+PHASE8B_SIZES = (("now", 64), ("before the cut", 128))
 ORDER = (0, 1, 1, 0)
 
 
@@ -47,6 +51,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = cs.phase_gpu_and_build()
+    if "--phase8b" in sys.argv[1:]:
+        return _phase8b(cs, smi)
     kernels = cs.phase_kernels(dev)
     codec = BatchingDeviceCodec(max_batch=64, device=dev)
     tally = cs.Tally()
@@ -74,6 +80,23 @@ def main() -> int:
     finally:
         tally.uninstall()
         codec.close()
+    print(json.dumps({"card": smi, "sizes": out}))
+    return 0
+
+
+def _phase8b(cs, smi: str) -> int:
+    """Phase 8b at PHASE8B_SIZES in turns; every check of the phase holds."""
+    out: dict = {}
+    for label, n_objects in (PHASE8B_SIZES[i] for i in ORDER):
+        root = tempfile.mkdtemp(prefix="smoke_cuts_")
+        try:
+            t = time.perf_counter()
+            cs.phase_boot_cli(smi, root, {}, n_objects=n_objects)
+            seconds = time.perf_counter() - t
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out.setdefault(label, []).append({"n_objects": n_objects, "phase8b_s": seconds})
+        print(f"{label}: phase 8b ({n_objects} objects) {seconds:.1f} s [{smi}]", flush=True)
     print(json.dumps({"card": smi, "sizes": out}))
     return 0
 

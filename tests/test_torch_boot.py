@@ -290,7 +290,8 @@ def _script(c: Client, heal_seq: dict, log: dict, side: Side) -> None:
 # The admin routes the later slices ported from the JAX package (pool
 # lifecycle, the scanner's usage and quota, remote tiers; then events and
 # operations: health, bandwidth, KMS, update, metrics, the speedtests, the
-# flight recorder and trace), in the order _ported_routes calls them.
+# flight recorder and trace; then replication and site replication), in the
+# order _ported_routes calls them.
 PORTED_ROUTES = (
     "GET /datausage", "GET /quota", "PUT /quota", "GET /pools/status", "POST /pools/attach",
     "POST /pools/decommission", "POST /pools/rebalance", "POST /tiers", "GET /tiers",
@@ -299,7 +300,16 @@ PORTED_ROUTES = (
     "GET /metrics", "GET /timeseries", "POST /speedtest", "POST /speedtest/object", "GET /speedtest/object",
     "POST /speedtest/drive", "GET /speedtest/drive", "POST /speedtest/net", "GET /speedtest/net",
     "POST /flight/dump", "GET /flight", "GET /flight/{id}", "GET /trace",
+    "POST /replication/target", "GET /replication/target", "GET /replication/status", "POST /replication/resync",
+    "DELETE /replication/target", "POST /site-replication/peer/join", "GET /site-replication/info",
+    "POST /site-replication/peer/bucket", "POST /site-replication/peer/meta", "POST /site-replication/peer/iam",
+    "POST /site-replication/peer/install-replication", "POST /site-replication/add",
 )
+# A site that is no node: its port has no listener, so every call to it is
+# refused at once (site-replication info reports it offline).
+ABSENT_SITE = "http://127.0.0.1:1"
+# The routes whose call is refused in both packages, with the status.
+PORTED_STATUS = {"POST /site-replication/add": 400}
 ATTACHED = [f"p2d{i}" for i in range(SET_DRIVES)]
 UPDATE_KEY = bytes(range(32))  # the ed25519 seed of the test's release signing key
 
@@ -382,6 +392,29 @@ def _ported_routes(c: Client, side: Side) -> dict:
         "GET /speedtest/net": ("GET", "/speedtest/net", b"", ()),
         "POST /flight/dump": ("POST", "/flight/dump", {"note": "boot"}, ()),
         "GET /flight": ("GET", "/flight", b"", ()),
+        "POST /replication/target": ("POST", "/replication/target", {
+            "bucket": "bkt", "endpoint": f"http://{c.host}:{c.port}", "targetBucket": "replica",
+            "accessKey": ROOT[0], "secretKey": ROOT[1], "bandwidth": 1 << 20}, ()),
+        "GET /replication/target": ("GET", "/replication/target", b"", [("bucket", "bkt")]),
+        "GET /replication/status": ("GET", "/replication/status", b"", ()),
+        "POST /replication/resync": ("POST", "/replication/resync", {"bucket": "bkt"}, ()),
+        "POST /site-replication/peer/join": ("POST", "/site-replication/peer/join", {"self_name": "here", "sites": [
+            {"name": "here", "endpoint": f"http://{c.host}:{c.port}", "access_key": ROOT[0],
+             "secret_key": ROOT[1]},
+            {"name": "absent", "endpoint": ABSENT_SITE, "access_key": ROOT[0], "secret_key": ROOT[1]}]}, ()),
+        "GET /site-replication/info": ("GET", "/site-replication/info", b"", ()),
+        "POST /site-replication/peer/bucket": ("POST", "/site-replication/peer/bucket",
+                                               {"op": "make", "bucket": "srb"}, ()),
+        "POST /site-replication/peer/meta": ("POST", "/site-replication/peer/meta",
+                                             {"bucket": "srb", "meta": {"tagging": "<Tagging/>"}}, ()),
+        "POST /site-replication/peer/iam": ("POST", "/site-replication/peer/iam", {"kind": "policy", "payload": {
+            "name": "sr-read", "doc": {"Version": "2012-10-17", "Statement": [
+                {"Effect": "Allow", "Action": ["s3:GetObject"], "Resource": ["arn:aws:s3:::srb/*"]}]}}}, ()),
+        "POST /site-replication/peer/install-replication": ("POST", "/site-replication/peer/install-replication",
+                                                            {"bucket": "srb"}, ()),
+        "POST /site-replication/add": ("POST", "/site-replication/add", {"sites": [
+            {"name": "here", "endpoint": f"http://{c.host}:{c.port}", "access_key": ROOT[0],
+             "secret_key": ROOT[1]}]}, ()),
     }
     out = {}
     for route in PORTED_ROUTES:
@@ -392,10 +425,18 @@ def _ported_routes(c: Client, side: Side) -> dict:
             bundle_id = out["GET /flight"][1]["bundles"][0]["id"]
             out[route] = c.json("GET", f"{ADMIN}/flight/{bundle_id}")
             continue
+        if route == "DELETE /replication/target":
+            arn = out["POST /replication/target"][1]["arn"]
+            out[route] = c.json("DELETE", f"{ADMIN}/replication/target", {"bucket": "bkt", "arn": arn})
+            continue
         method, path, body, query = calls[route]
         out[route] = c.json(method, ADMIN + path, body, query)
     out["GET /quota after"] = c.json("GET", f"{ADMIN}/quota", query=[("bucket", "bkt")])
     out["GET /pools/status after"] = c.json("GET", f"{ADMIN}/pools/status")
+    out["srb replication"] = [json_kind(t.to_dict()) for t in side.node.replication.targets.list_targets("srb")]
+    out["srb policy"] = side.node.iam.custom_policies.get("sr-read")
+    # Leave the federation: the restart below is not about site replication.
+    c.json("POST", f"{ADMIN}/site-replication/peer/join", {"self_name": "", "sites": []})
     # Leave the quota off: the restart's PUTs below are not about quotas.
     c.json("PUT", f"{ADMIN}/quota", {"quota": 0}, [("bucket", "bkt")])
     return out
@@ -475,11 +516,7 @@ def boot(tmp_path_factory):
                 m.setattr(fl, "dir", os.path.join(sides[name].root, "flight"))
             out.ported = {name: _ported_routes(side.client, side) for name, side in sides.items()}
         out.roots = {name: side.root for name, side in sides.items()}
-        out.unported = {
-            (method, path): sides["port"].client.json(method, ADMIN + path.replace("{id}", "x").replace(
-                "{name}", "x"))
-            for method, path, _ in admin.NOT_PORTED_ROUTES
-        }
+        out.ports = {name: side.client.port for name, side in sides.items()}
         out.trees = {
             "jax": _versions_on_disk(sides["jax"], JaxLocalDrive, "bkt"),
             "port": _versions_on_disk(sides["port"], LocalDrive, "bkt"),
@@ -630,15 +667,6 @@ def test_restart_sweeps_a_dead_pids_stage_files(boot):
     assert boot.swept == {"jax": [], "port": []}
 
 
-@pytest.mark.parametrize("route", [f"{m} {p}" for m, p, _ in admin.NOT_PORTED_ROUTES])
-def test_unported_admin_route_answers_501(boot, route):
-    method, path = route.split(" ")
-    module = dict(((m, p), mod) for m, p, mod in admin.NOT_PORTED_ROUTES)[(method, path)]
-    status, doc = boot.unported[(method, path)]
-    assert status == 501
-    assert doc["Code"] == "NotImplemented" and module in doc["Message"]
-
-
 def _drives_listed(d: dict) -> dict:
     return {**{k: v for k, v in d.items() if k != "drives"}, "drives": list(d["drives"].values())}
 
@@ -654,16 +682,19 @@ VARIABLE = {
     "GET /speedtest/drive": _drives_listed,
     "GET /flight": lambda d: {"bundles": d["bundles"], "stats": sorted(d["stats"])},
     "GET /flight/{id}": lambda d: {"keys": sorted(d), "reason": d["reason"], "detail": d["detail"]},
+    # The node's own endpoint (its port) and the target's ARN (a uuid).
+    "POST /replication/target": lambda d: sorted(d),
+    "GET /replication/target": lambda d: [sorted(t) for t in d],
 }
 
 
 @pytest.mark.parametrize("route", PORTED_ROUTES)
 def test_ported_admin_route_answers_as_the_jax_handler(boot, route):
     """The routes that left NOT_PORTED_ROUTES (the pool lifecycle, scanner
-    and tiering slice; the events and operations slice): the port's status
-    and JSON shape are the JAX handler's."""
+    and tiering slice; the events and operations slice; the replication
+    slice): the port's status and JSON shape are the JAX handler's."""
     (sj, dj), (sp, dp) = boot.ported["jax"][route], boot.ported["port"][route]
-    assert sp == sj == 200, (route, sj, dj, sp, dp)
+    assert sp == sj == PORTED_STATUS.get(route, 200), (route, sj, dj, sp, dp)
     norm = VARIABLE.get(route, lambda d: d)
     assert json_kind(norm(dp), boot.roots["port"]) == json_kind(norm(dj), boot.roots["jax"])
     method, path = route.split(" ")
@@ -697,6 +728,22 @@ def test_ported_admin_route_answers_as_the_jax_handler(boot, route):
         assert len(dp["bundles"]) == len(dj["bundles"]) == 1
     if route == "GET /trace":
         assert dp == dj == {"content-type": "application/x-ndjson"}
+    if route == "GET /replication/target":
+        assert [(t["endpoint"], t["target_bucket"], t["bandwidth"]) for t in dp] == [
+            (f"http://127.0.0.1:{boot.ports['port']}", "replica", 1 << 20)]
+        assert all("secret_key" not in t for t in dp)
+    if route == "GET /replication/status":
+        assert dp == dj == {"pending": 0, "completed": 0, "failed": 0, "replicatedBytes": 0}
+    if route == "GET /site-replication/info":
+        assert dp["enabled"] and [(s["name"], s["self"], s.get("online")) for s in dp["sites"]] == [
+            ("here", True, None), ("absent", False, False)]
+    if route == "POST /site-replication/peer/iam":
+        assert boot.ported["port"]["srb policy"] == boot.ported["jax"]["srb policy"] is not None
+    if route == "POST /site-replication/peer/install-replication":
+        assert boot.ported["port"]["srb replication"] == boot.ported["jax"]["srb replication"]
+        assert len(boot.ported["port"]["srb replication"]) == 1
+    if route == "POST /site-replication/add":
+        assert dp == dj == {"Code": "InvalidArgument", "Message": "need at least two sites"}
 
 
 def test_unported_routes_are_every_other_jax_admin_route():

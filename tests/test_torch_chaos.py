@@ -425,6 +425,104 @@ def test_crash_point_fires_and_recovers_alike(tmp_path, codec, small_parts, poin
         assert _orphan_stage_names(d.endpoint(), dead) == 0
 
 
+def test_recovery_sweeps_the_staging_of_a_config_object(tmp_path, codec):
+    """A process killed mid-commit of a config-store object (the scanner's
+    usage, the tier journal, IAM: objects of the meta bucket) leaves that
+    xl.meta's staging file on the drives whose replace it had not reached.
+    The port's restart scan removes it; the JAX package's walks the user
+    buckets only and leaves it (a departure: ROADMAP, Queue C item 10). The
+    raise mode here stops the one drive's commit where the kill stops the
+    process."""
+    pair = Pair(str(tmp_path), codec)
+    _arm_both("storage.xlmeta.pre-replace", mode="raise", target=os.sep + "d2", seed=5)
+    outcomes = pair.both(lambda eo: eo.put_object(SYS, "scanner/data-usage.json", b'{"usage": 1}' * 40))
+    assert [err for _, err in outcomes] == [None, None]  # write quorum without drive 2
+    crash.REGISTRY.disarm_all()
+    jax_crash.REGISTRY.disarm_all()
+
+    def staged(drive) -> list:
+        obj = os.path.join(drive.endpoint(), SYS, "scanner", "data-usage.json")
+        return [f for f in os.listdir(obj) if re.search(r"\.tmp[0-9a-f]{8}$", f)]
+
+    assert len(staged(pair.port_drives[2])) == len(staged(pair.jax_drives[2])) == 1
+    recovery.reset_counters()
+    jax_recovery.reset_counters()
+    assert recovery.recover_drive(pair.port_drives[2])["tmp_files"] == 1
+    assert jax_recovery.recover_drive(pair.jax_drives[2])["tmp_files"] == 0
+    assert staged(pair.port_drives[2]) == [] and len(staged(pair.jax_drives[2])) == 1
+    assert pair.port.get_object(SYS, "scanner/data-usage.json")[1] == b'{"usage": 1}' * 40
+
+
+@pytest.mark.parametrize("volume", [SYS, BUCKET])
+def test_recovery_leaves_a_live_writes_staging_file(tmp_path, volume):
+    """A restart scan runs while siblings write (a pre-fork worker's
+    respawn, a rejoining node whose storage REST already serves). A staging
+    file written just before the scan belongs to a live write: the scan
+    leaves it, and its writer's replace goes through, while a dead process's
+    staging file beside it, unchanged for STAGING_GRACE_S, goes."""
+    import threading
+    import time
+
+    formats = port_format.init_format(1, 1)
+    path = str(tmp_path / "d0")
+    os.makedirs(path)
+    formats[0].save(path)
+    drive = LocalDrive(path)
+    drive.make_vol(BUCKET)
+    obj = os.path.join(drive._vol_path(volume), "cfg", "doc.json")
+    os.makedirs(obj)
+    live = os.path.join(obj, "xl.meta.tmp0123abcd")
+    dead = os.path.join(obj, "old.meta.tmpdeadbeef")
+    for p in (live, dead):
+        with open(p, "wb") as f:
+            f.write(b"staged")
+    old = time.time() - recovery.STAGING_GRACE_S - 1
+    os.utime(dead, (old, old))
+    replaced = []
+
+    def writer():
+        time.sleep(0.5)  # the scan is watching the live file by now
+        os.replace(live, os.path.join(obj, "xl.meta"))
+        replaced.append(True)
+
+    t = threading.Thread(target=writer)
+    t.start()
+    recovery.reset_counters()
+    t0 = time.monotonic()
+    got = recovery.recover_drive(drive)
+    t.join()
+    assert replaced == [True]
+    assert got["tmp_files"] == 1
+    assert sorted(os.listdir(obj)) == ["xl.meta"]
+    with open(os.path.join(obj, "xl.meta"), "rb") as f:
+        assert f.read() == b"staged"
+    assert time.monotonic() - t0 < recovery.STAGING_GRACE_S
+
+
+def test_recovery_waits_out_a_young_dead_staging_file(tmp_path, monkeypatch):
+    """A boot right after a crash finds the dead process's staging file a
+    moment old: the scan watches it until it has sat unchanged for
+    STAGING_GRACE_S, then removes it, and the prefix dir it leaves empty."""
+    import time
+
+    monkeypatch.setattr(recovery, "STAGING_GRACE_S", 1.0)
+    formats = port_format.init_format(1, 1)
+    path = str(tmp_path / "d0")
+    os.makedirs(path)
+    formats[0].save(path)
+    drive = LocalDrive(path)
+    drive.make_vol(BUCKET)
+    obj = os.path.join(drive._vol_path(BUCKET), "pre", "victim")
+    os.makedirs(obj)
+    with open(os.path.join(obj, "xl.meta.tmp0badcafe"), "wb") as f:
+        f.write(b"staged")
+    recovery.reset_counters()
+    t0 = time.monotonic()
+    assert recovery.recover_drive(drive)["tmp_files"] == 1
+    assert 0.9 <= time.monotonic() - t0 < 5
+    assert os.listdir(drive._vol_path(BUCKET)) == []
+
+
 def test_arm_from_env_parses_alike():
     env = {"MTPU_CRASH": "put.mid-commit:kill:8,multipart.complete.partial:raise:0:3"}
     got = []

@@ -176,6 +176,15 @@ def test_sigterm_exits_0(served):
     assert '"msg": "shutting down"' in served["stdout"]
 
 
+def test_sigterm_closes_replication_then_site_replication(served):
+    """serve closes bucket replication, then site replication, as the JAX
+    serve does, and logs each close with whether its threads ended."""
+    closed = [json.loads(ln) for ln in served["stdout"].splitlines() if ln.startswith("{")
+              and json.loads(ln).get("msg", "").endswith("replication closed")]
+    assert [(c["msg"], c["ended"]) for c in closed] == [("replication closed", True),
+                                                        ("site replication closed", True)]
+
+
 def test_scanner_starts_and_stops_with_serve(served):
     usage = served["restart-usage"]
     assert usage["objectsCount"] == 1
@@ -293,3 +302,46 @@ def test_sigterm_leaves_a_stuck_scanner_behind(tmp_path):
     assert cli.SCANNER_GRACE_S <= took < cli.SCANNER_GRACE_S + 10, took
     busy = [json.loads(ln) for ln in srv.lines if '"msg": "scanner still busy at shutdown"' in ln]
     assert len(busy) == 1 and "stuck_cycle" in busy[0]["stack"], srv.lines
+
+
+def test_sigterm_leaves_a_stuck_replica_send_behind(tmp_path):
+    """A replication worker stuck inside a replica send (here a send that
+    sleeps, put in by a sitecustomize hook, as a target that stopped
+    answering holds one for TargetClient's 30 s) does not hold the exit:
+    the workers share ReplicationSys.close()'s 5 s, the close is logged as
+    not ended, and the process exits 0 without joining the worker."""
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    entered = tmp_path / "entered"
+    (hook / "sitecustomize.py").write_text(
+        "import time\n"
+        "from minio_tpu_torch.control import replication\n\n"
+        "real_init = replication.ReplicationSys.__init__\n\n\n"
+        "def init(self, *args, **kwargs):\n"
+        "    real_init(self, *args, **kwargs)\n"
+        "    self._enqueue(replication.ReplTask('bucket', 'object'))\n\n\n"
+        "def stuck_send(self, task):\n"
+        f"    open({str(entered)!r}, 'w').close()\n"
+        "    time.sleep(120)\n"
+        "    return True\n\n\n"
+        "replication.ReplicationSys.__init__ = init\n"
+        "replication.ReplicationSys._replicate = stuck_send\n"
+    )
+    srv = Server(f"{tmp_path}/disk{{1...4}}", env={"PYTHONPATH": f"{hook}{os.pathsep}{REPO}"})
+    try:
+        srv.wait_online()
+        deadline = time.monotonic() + 30
+        while not entered.exists():
+            assert time.monotonic() < deadline, (srv.lines, srv.err)
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        assert srv.stop(60) == 0, srv.err
+        took = time.monotonic() - t0
+    finally:
+        if srv.proc.poll() is None:
+            srv.proc.kill()
+            srv.proc.wait(10)
+    assert 5.0 <= took < 15.0, took
+    closed = [json.loads(ln) for ln in srv.lines if ln.startswith("{") and "replication closed" in ln]
+    assert [(c["msg"], c["ended"]) for c in closed] == [("replication closed", False),
+                                                        ("site replication closed", True)], srv.lines

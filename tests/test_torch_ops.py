@@ -555,6 +555,16 @@ def test_import_checks_cover_events_and_operations():
         assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
 
 
+def test_import_checks_cover_replication_and_identity():
+    mods = _port_modules()
+    for m in (
+        "control.replication", "control.site_replication", "api.jwt", "api.sts", "api.console",
+        "control.ldap", "control.etcd",
+    ):
+        assert f"minio_tpu_torch.{m}" in mods
+        assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"

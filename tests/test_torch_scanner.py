@@ -534,3 +534,59 @@ def test_scanner_raises_before_a_codec_is_installed(tmp_path, monkeypatch):
     layer = ServerPools([ErasureSets.from_drives(drives, formats[0])])
     with pytest.raises(RuntimeError):
         DataScanner(layer).scan_cycle()
+
+
+def test_stop_is_not_held_by_a_peer_that_accepts_no_connection(tmp_path, codec, monkeypatch):
+    """A stopping node's scanner sat in a peer call's connect() (ROADMAP,
+    Queue C item 9): a peer whose listener accepts nothing drops the SYNs,
+    and the connect waited out the call's whole timeout (30 s) past the
+    server's SCANNER_GRACE_S. The transport's connect deadline ends that
+    call, so the scanner stops within the grace."""
+    import socket
+    import threading
+
+    from minio_tpu_torch import cli
+    from minio_tpu_torch.dist import transport
+    from minio_tpu_torch.dist.storage_rest import RemoteDrive
+
+    formats = fmt.init_format(1, 4)
+    dirs = []
+    for i, f in enumerate(formats):
+        d = str(tmp_path / f"d{i}")
+        os.makedirs(d)
+        f.save(d)
+        dirs.append(d)
+    local = ServerPools([ErasureSets.from_drives([LocalDrive(d) for d in dirs], formats[0], codec=codec)])
+    local.make_bucket("peer")
+    local.put_object("peer", "o", b"p" * 100)
+    # A listener with a backlog of one, filled: every later SYN is dropped.
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(0)
+    port = listener.getsockname()[1]
+    filler = socket.create_connection(("127.0.0.1", port))
+    connecting = threading.Event()
+    real_connect = socket.socket.connect
+
+    def connect(sock, address):
+        if isinstance(address, tuple) and address[1] == port:
+            connecting.set()
+        return real_connect(sock, address)
+
+    monkeypatch.setattr(socket.socket, "connect", connect)
+    # The set's fourth drive becomes a remote drive on that peer.
+    remote = RemoteDrive(f"http://127.0.0.1:{port}", dirs[3], "token")
+    local.pools[0].sets[0].disks[3] = remote
+    sc = DataScanner(local, heal_sample=1 << 30, cycle_seconds=3600)
+    sc._sleeper.sleep = lambda _work: None
+    try:
+        sc.start()
+        assert connecting.wait(30)
+        t0 = time.monotonic()
+        assert sc.stop(timeout=cli.SCANNER_GRACE_S) is True
+        assert time.monotonic() - t0 < transport.CONNECT_TIMEOUT + 2.0
+        assert not remote.is_online()  # the connect failed; the peer is marked offline
+    finally:
+        sc.stop(timeout=0)
+        filler.close()
+        listener.close()
