@@ -179,8 +179,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      versions and the boot goldens, and installs the batching codec;
      make_app() is served by cli._run_app_until to phase 6's client
      process. Paths, each with its launch counts reset before and read
-     after (no host-codec or plain-version call): boot_put (64 objects of
-     phase 5's size law and one 64 MiB object), boot_get (byte-exact),
+     after (no host-codec or plain-version call): boot_put (32 objects of
+     phase 5's size law, 64 before the cut that made room for phase 14,
+     and one 64 MiB object), boot_get (byte-exact),
      boot_degraded_get (the part files of drives 0, 5, 10, 15 removed),
      boot_heal (admin /heal; the part files come back byte-identical to the
      removed ones), boot_mrf (one 4 MiB PUT while /chaos fails drive07's
@@ -190,9 +191,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      <root>/boot/p0/drive{00...31} and <root>/boot/p1/drive{00...15}
      (48 drives, two pools, three 12+4 sets): the online line must name
      BatchingDeviceCodec, 48 drives, 2 pools, 3 sets; the seconds from the
-     spawn to online and to the first 200 PUT (503 before it); 64 objects
+     spawn to online and to the first 200 PUT (503 before it); 32 objects
      of phase 5's size law (128 before the cut that made room for phase
-     13) from 16 threads and one 64 MiB aws-chunked PUT,
+     13, 64 before the one that made room for phase 14) from 16 threads
+     and one 64 MiB aws-chunked PUT,
      read back byte-exact; /perf's stage ledger with codec encode-batch and
      verify-batch records and the probe on gpu; a user added over admin;
      SIGTERM rc 0 within 15 s; a restart, booted with
@@ -224,9 +226,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      layout at MTPU_WORKERS = 1, 2 and 4 in turn (the one-worker boot
      formats the drives; MTPU_WORKER_RESPAWNS=1): the seconds from the
      spawn until every worker is online, each worker's online line with
-     its pid and its own probe's PROBE_OK gpu verdict, 64 PUTs of phase
-     5's size law from phase 6's 16-thread client and 64 byte-exact GETs
-     (objects/s, p50 and p99), the gil_load of whichever worker answered
+     its pid and its own probe's PROBE_OK gpu verdict, 32 PUTs of phase
+     5's size law (64 before the cut that made room for phase 14) from
+     phase 6's 16-thread client and 32 byte-exact GETs (objects/s, p50
+     and p99), the gil_load of whichever worker answered
      /profile, how the kernel spread 16 new connections over the workers
      (from /proc), and SIGTERM to the master: rc 0 and no worker left.
    - 9c, in the two-worker boot after its reads: one worker SIGKILLed 1 s
@@ -250,7 +253,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      BatchingDeviceCodec, 16 drives, 1 pool, 1 set and its own PROBE_OK
      gpu; the seconds from spawn to all four online; one deployment id on
      the 16 format.json files; the card's memory in use.
-   - 10b: 128 objects of phase 5's size law and one 64 MiB object PUT
+   - 10b: 64 objects of phase 5's size law (128 before the cut that made
+     room for phase 14) and one 64 MiB object PUT
      round-robin over the nodes, each read back byte-exact through the next
      node (objects/s, p50, p99 of each); /perf?cluster=1 shows encode-batch
      and verify-batch records and every peer, and each node's /perf its own
@@ -414,9 +418,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    At the end B gets SIGTERM and exits 0 within 30 s, its log naming
    replication and site replication closed; no thread of A's replication
    outlives its node.
+14. The workload harness on the card (loadgen/, object/memcache.py):
+   scenarios/smoke.yaml and scenarios/hot_get_storm.yaml, as they are,
+   through the port's ScenarioRunner against its InProcessCluster (2
+   nodes x 4 drives each, over HTTP in this process), every node on the
+   script's codec. hot_get_storm is MinIO's zipfian hot-set GET storm:
+   MTPU_MEMCACHE_MB=64 and MTPU_MEMCACHE_VALIDATE=0 on each node, 128
+   objects of 256-512 KiB prepopulated, a cold uniform sweep of 96 GETs,
+   then 768 zipfian (theta 0.99) GETs from 8 threads. The kernel counts
+   are zeroed before each prepopulation and each scenario phase and read
+   after (paths loadgen_smoke_prepopulate, loadgen_smoke,
+   hot_get_prepopulate, hot_get_sweep_cold, hot_get_storm_hot; no host
+   codec, no plain version): both kernels launch in each prepopulation
+   and in the smoke phase, hh256 in sweep_cold, and storm_hot launches
+   fewer hh256 per GET than sweep_cold (a memory hit launches nothing).
+   The reports' SLO, acked-object loss and hit-ratio (>= 0.8 in
+   storm_hot) verdicts hold; the compare verdict (storm_hot >= 3x
+   sweep_cold GET ops/s), a throughput ratio on a host whose cores the
+   client threads and both nodes share, is printed, and a line
+   "14 hot_get_storm FINDING" when it misses its floor. Each phase's
+   op_sequence_sha256 is the one its scenario regenerates.
+   Printed: each phase's ops/s, p50 and p99 by op, the hit ratios, the
+   hashes, the launches of each path and the device time they take at
+   phase 2's times.
 
 The line before the last is a JSON object describing each kernel, with its
-launches by path (phases 7, 8a, 11, 12 and 13 included); the last
+launches by path (phases 7, 8a, 11, 12, 13 and 14 included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 
@@ -2738,7 +2765,7 @@ def _check_probe(perf: dict, device: str) -> None:
         raise AssertionError(f"/perf probe: {probe}, want ok on platform gpu")
 
 
-def phase_boot_node(smi: str, root: str, tally: Tally, rates: dict, device: str = "cuda", n_objects: int = 64,
+def phase_boot_node(smi: str, root: str, tally: Tally, rates: dict, device: str = "cuda", n_objects: int = 32,
                     big_mib: int = 64, mrf_mib: int = 4, max_size: int = 4 * MiB, threads: int = HTTP_THREADS) -> dict:
     """8a: a port Node in this process over 16 wrapped drives, no codec=:
     build() probes the card through the probe child and installs the
@@ -3010,7 +3037,7 @@ def server_stages(client, label: str) -> dict:
     return perf
 
 
-def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_objects: int = 64,
+def phase_boot_cli(smi: str, root: str, rates: dict, device: str = "cuda", n_objects: int = 32,
                    big_mib: int = 64, crash_mib: int = 4, max_size: int = 4 * MiB,
                    threads: int = HTTP_THREADS) -> None:
     """8b: the real CLI over 48 drives in two pools (32 + 16, three 12+4
@@ -3377,7 +3404,7 @@ def _wait_workers(srv, n: int, timeout: float) -> tuple[float, list]:
 
 
 def phase_prefork(smi: str, root: str, device: str = "cuda", workers: tuple = (1, 2, 4),
-                  n_objects: int = 64, n_kill: int = 64, max_size: int = 4 * MiB,
+                  n_objects: int = 32, n_kill: int = 64, max_size: int = 4 * MiB,
                   threads: int = HTTP_THREADS) -> None:
     """9b and 9c: `python3 -m minio_tpu_torch server` on phase 8b's 48-drive
     two-pool deployment at MTPU_WORKERS = 1, 2, 4 in turn (the one-worker
@@ -3569,7 +3596,7 @@ def _latest_versions(dirs: list, name: str) -> set:
     return out
 
 
-def phase_cluster(smi: str, root: str, device: str = "cuda", n_objects: int = 128, big_mib: int = 64,
+def phase_cluster(smi: str, root: str, device: str = "cuda", n_objects: int = 64, big_mib: int = 64,
                   n_new: int = 32, n_race: int = 8, race_kib: int = 512, n_sample: int = 8,
                   max_size: int = 4 * MiB, threads: int = HTTP_THREADS, speedtest: dict | None = None) -> dict:
     """10a-10f: four `python3 -m minio_tpu_torch server --url ...` processes
@@ -5142,6 +5169,180 @@ def phase_replication(smi: str, root: str, tally: Tally, device: str = "cuda", n
     return paths
 
 
+# -- phase 14: the workload harness on the card ------------------------------------------------
+
+# The scenario phases of phase 14, by scenario, and the kernel-count path of
+# each (the prepopulation is one too); the kernels each path must launch.
+LOADGEN_PATHS = {
+    "smoke": {"prepopulate": "loadgen_smoke_prepopulate", "smoke": "loadgen_smoke"},
+    "hot_get_storm": {"prepopulate": "hot_get_prepopulate", "sweep_cold": "hot_get_sweep_cold",
+                      "storm_hot": "hot_get_storm_hot"},
+}
+LOADGEN_NEED = {"hot_get_sweep_cold": ("hh256",), "hot_get_storm_hot": ()}
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """Set `values` in os.environ where the caller's environment does not set
+    them (as the loadgen tool does with a spec's env), and restore after."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        os.environ.setdefault(k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_loadgen(smi: str, root: str, codec, tally: Tally, kernels: dict,
+                  scenarios: tuple = ("smoke", "hot_get_storm")) -> dict:
+    """Phase 14: scenarios/smoke.yaml and scenarios/hot_get_storm.yaml, as
+    they are, through the port's loadgen (ScenarioRunner, S3Target signing
+    with api/auth.py, InProcessAdmin) against its InProcessCluster, every
+    node serving the script's codec on the card. The kernel counts are zeroed
+    before each scenario's prepopulation and each of its phases, and read
+    after (no host codec, no plain version): both kernels launch in each
+    prepopulation and in the smoke phase, hh256 in sweep_cold, and storm_hot
+    launches fewer hh256 per GET than sweep_cold. The reports' SLO rows,
+    acked-object loss and cache_slo (hit ratio >= 0.8 in storm_hot) hold;
+    compare (storm_hot >= 3x sweep_cold GET ops/s) is printed, as a
+    finding when it misses; and each phase's op_sequence_sha256 is the one
+    its scenario regenerates.
+    Prints each phase's ops/s, p50 and p99 by op, the hit ratios, the
+    hashes, and the launches of each path with the device time they take at
+    phase 2's times. Returns the kernel counts by path."""
+    from minio_tpu_torch.dist.node import Node
+    from minio_tpu_torch.loadgen import generate_ops, load_scenario, op_sequence_hash
+    from minio_tpu_torch.loadgen.cluster import InProcessCluster
+    from minio_tpu_torch.loadgen.runner import ScenarioRunner
+    from minio_tpu_torch.loadgen.target import InProcessAdmin, S3Target
+    from minio_tpu_torch.tools.loadgen import verdict_failures
+
+    t_phase = time.perf_counter()
+    if codec._stop.is_set():
+        raise AssertionError("14: the script's codec was closed by an earlier phase")
+    scen_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenarios")
+    paths: dict = {}
+    walls: dict = {}
+    threads_before = set(threading.enumerate())
+
+    class Runner(ScenarioRunner):
+        """The scenario's runner with the kernel counts zeroed before the
+        prepopulation and each phase, and read after each."""
+
+        def __init__(self, scenario, target, admin, names: dict):
+            super().__init__(scenario, target, admin, log=lambda m: log(f"14 {scenario.name}: {m}"))
+            self.names = names
+
+        def _counted(self, key: str, run):
+            path = self.names[key]
+            tally.reset()
+            t = time.perf_counter()
+            out = run()
+            walls[path] = time.perf_counter() - t
+            paths[path] = tally.read(path, need=LOADGEN_NEED.get(path, ("rs_gf_apply", "hh256")))
+            _no_host_fallback(codec, path)
+            return out
+
+        def prepopulate(self):
+            return self._counted("prepopulate", super(Runner, self).prepopulate)
+
+        def _run_phase(self, phase):
+            return self._counted(phase.name, lambda: super(Runner, self)._run_phase(phase))
+
+    reports = {}
+    for name in scenarios:
+        sc = load_scenario(os.path.join(scen_dir, f"{name}.yaml"))
+        with _env({**sc.env, "MTPU_TRACE_SAMPLE": "0.1"}):
+            t = time.perf_counter()
+            cluster = InProcessCluster(os.path.join(root, "loadgen", name), sc.nodes, sc.drives_per_node,
+                                       pools=sc.pools, codec=codec)
+            try:
+                build_s = time.perf_counter() - t
+                served = {type(n.codec).__name__ + " on " + str(n.codec.device) for n in cluster.nodes}
+                if any(n.codec is not codec for n in cluster.nodes):
+                    raise AssertionError(f"14 {name}: a node serves another codec than the script's: {served}")
+                tiers = [n.memcache.cfg.limit_bytes >> 20 if n.memcache is not None else 0 for n in cluster.nodes]
+                want_mb = int(sc.env.get("MTPU_MEMCACHE_MB", "0"))
+                if tiers != [want_mb] * len(cluster.nodes):
+                    raise AssertionError(f"14 {name}: memcache MiB by node {tiers}, the scenario asks {want_mb}")
+                log(f"14 {name}: {sc.nodes} nodes x {sc.drives_per_node} drives built in {build_s:.2f} s, "
+                    f"serving {served.pop()}; memcache MiB by node {tiers}; env {sc.env}")
+                target = S3Target(cluster.urls, cluster.root_user, cluster.root_password)
+                report = Runner(sc, target, InProcessAdmin(cluster), LOADGEN_PATHS[name]).run()
+            finally:
+                cluster.stop()
+        reports[name] = report
+        pre = LOADGEN_PATHS[name]["prepopulate"]
+        log(f"14 {name}: prepopulated {sc.prepopulate} objects in {walls[pre]:.3f} s "
+            f"({sc.prepopulate / walls[pre]:.1f} objects/s) [{smi}]")
+        for ph in sc.phases:
+            row = report["phases"][ph.name]
+            regen = op_sequence_hash(generate_ops(sc, ph, ph.ops))
+            if row["op_sequence_sha256"] != regen:
+                raise AssertionError(f"14 {name}/{ph.name}: op_sequence_sha256 {row['op_sequence_sha256']}, "
+                                     f"the scenario regenerates {regen}")
+            by_op = "; ".join(f"{op} {r['ops_per_s']:.1f} ops/s p50 {r.get('p50_ms', 0.0):.3f} ms "
+                              f"p99 {r.get('p99_ms', 0.0):.3f} ms ({r['ok']} ok, errors {r['errors']})"
+                              for op, r in row["ops"].items())
+            cache = row.get("cache") or {}
+            log(f"14 {name}/{ph.name}: {row['executed']} ops in {row['wall_s']:.3f} s; {by_op}"
+                + (f"; memcache hit ratio {cache['hit_ratio']} ({cache['hits']} hits, {cache['misses']} misses, "
+                   f"{cache['fills']} fills, {cache['singleflight_waits']} singleflight waits)" if cache else "")
+                + f"; op_sequence_sha256 {row['op_sequence_sha256']} [{smi}]")
+        for key, path in LOADGEN_PATHS[name].items():
+            counts = paths[path]
+            dev_ms = _device_ms(counts, kernels)
+            log(f"14 {path}: launches {json.dumps(counts['launches'])}; launches by shape class "
+                f"{json.dumps(_shape_summary(counts))}; device time estimated from them {dev_ms / 1e3:.4f} s of "
+                f"{walls[path]:.3f} s wall ({100 * dev_ms / 1e3 / walls[path]:.2f}%)")
+        verdicts = {k: report.get(k) for k in ("slo", "acked_object_loss", "cache_slo", "compare") if k in report}
+        log(f"14 {name} verdicts: {json.dumps(verdicts, sort_keys=True)}")
+        # The compare block is a throughput ratio of two phases on a host
+        # whose cores the client threads and both nodes share, not a check of
+        # what the store answered: a ratio under its floor is printed as a
+        # finding. Every other verdict must hold.
+        cmp = report.get("compare")
+        for block in cmp if isinstance(cmp, list) else [cmp] if isinstance(cmp, dict) else []:
+            if not block["reproduced"]:
+                log(f"14 {name} FINDING: {block['a']} moved {block['ratio']}x {block['b']}'s {block['op']} "
+                    f"{block['metric']} ({block['value_a']} / {block['value_b']}), under the scenario's "
+                    f"{block['min_ratio']}x [{smi}]")
+        failed = verdict_failures({k: v for k, v in report.items() if k != "compare"})
+        if failed:
+            raise AssertionError(f"14 {name}: verdicts failed on the card: {failed}")
+    if "hot_get_storm" in reports:
+        per_get = {}
+        for ph in ("sweep_cold", "storm_hot"):
+            gets = reports["hot_get_storm"]["phases"][ph]["executed"]
+            per_get[ph] = paths[LOADGEN_PATHS["hot_get_storm"][ph]]["launches"]["hh256"] / gets
+        log(f"14 hot_get_storm: hh256 launches per GET {json.dumps(per_get)}")
+        if not per_get["storm_hot"] < per_get["sweep_cold"]:
+            raise AssertionError(f"14: storm_hot launches no fewer hh256 per GET than sweep_cold: {per_get}")
+    # The process-wide planes the nodes' builds started stop with the last
+    # node (the profiler, the flight recorder, the trace bridges).
+    Node.close_all()
+    # What may outlive the phase: the process-wide drive I/O pools and lock
+    # refresh daemon, and the script's codec's batcher threads.
+    shared = ("drive-io", "lock-refresh", "encode-batch-")
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t for t in threading.enumerate()
+                if t not in threads_before and t.is_alive() and not t.name.startswith(shared)]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    if left:
+        raise AssertionError(f"14: threads started by the phase outlived it: {sorted(t.name for t in left)}")
+    shutil.rmtree(os.path.join(root, "loadgen"), ignore_errors=True)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5199,6 +5400,8 @@ def main() -> int:
         log_phase_end("phase 12")
         paths.update(phase_replication(smi, root, tally))
         log_phase_end("phase 13")
+        paths.update(phase_loadgen(smi, root, codec, tally, kernels))
+        log_phase_end("phase 14")
     finally:
         tally.uninstall()
         codec.close()

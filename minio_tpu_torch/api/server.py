@@ -2903,7 +2903,10 @@ class ThreadedServer:
 
             async def teardown():
                 await self._runner.cleanup()
+                # The loop's default executor ran the handlers' blocking
+                # calls: its threads end with the server.
+                await loop.shutdown_default_executor(timeout=5)
                 loop.stop()
 
             asyncio.run_coroutine_threadsafe(teardown(), loop)
-            self._thread.join(5)
+            self._thread.join(10)

@@ -54,7 +54,8 @@ import time
 _ELLIPSIS = re.compile(r"\{(\d+)\.\.\.(\d+)\}")
 
 # Commands and modes whose modules the port does not have yet: each exits 2
-# naming the module it waits for (ROADMAP.md, Queue A item 8).
+# naming the module it waits for (ROADMAP.md, Queue A item 8.8: object/fs.py
+# and object/gateway.py, after the caches).
 _NOT_PORTED_EXIT = 2
 # Seconds a SIGTERMed server waits for its scanner to reach its next object.
 SCANNER_GRACE_S = 10.0
@@ -137,7 +138,7 @@ def _log(quiet: bool, as_json: bool, **fields) -> None:
 
 
 def _not_ported(what: str, module: str) -> int:
-    print(f"{what} is not ported yet: it waits for {module} (ROADMAP.md, Queue A item 8)",
+    print(f"{what} is not ported yet: it waits for {module} (ROADMAP.md, Queue A item 8.8)",
           file=sys.stderr)
     return _NOT_PORTED_EXIT
 

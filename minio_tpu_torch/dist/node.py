@@ -13,9 +13,10 @@ and peer REST on one port.
 
 The pool manager (attach, decommission, rebalance), the data scanner,
 TierConfigMgr, metrics, the event notifier with its targets, the flight
-recorder, bucket and site replication, the console and the etcd IAM store
-are wired as the JAX node wires them. Left for later, at its site below:
-the disk and memory caches (ROADMAP.md, Queue A item 8.8).
+recorder, bucket and site replication, the console, the etcd IAM store,
+and the disk and memory caches (MTPU_CACHE_DRIVES, MTPU_MEMCACHE_MB; the S3
+front serves the outermost cache layer, background subsystems the raw
+pools) are wired as the JAX node wires them.
 """
 
 from __future__ import annotations
@@ -167,6 +168,8 @@ class Node:
         self.notifier = None
         self.replication = None
         self.site_repl = None
+        self.cache = None  # CacheObjectLayer (MTPU_CACHE_DRIVES)
+        self.memcache = None  # MemObjectCache (MTPU_MEMCACHE_MB)
         self._quota_cache = None  # leader-persisted usage tree (non-leaders)
         self._quota_cache_ts = 0.0
 
@@ -368,10 +371,37 @@ class Node:
                 f"will not survive a restart. Restore the {backend} and restart.",
                 exc=e,
             )
-        # The disk and memory caches (object/cache.py, object/memcache.py)
-        # wait for Queue A item 8.8: the S3 front serves the pools directly.
+        # Optional SSD read-cache in front of the object layer for the S3
+        # serving path only -- background subsystems keep the raw layer
+        # (the reference interposes CacheObjectLayer at the handler level,
+        # object-handlers.go:1722-1724).
+        from ..object.cache import CacheConfig, CacheObjectLayer
+
+        cache_cfg = CacheConfig.from_env()
+        self.cache = CacheObjectLayer(self.pools, cache_cfg) if cache_cfg else None
+        # Hot tier above the disk cache: an in-memory coherent LRU
+        # (MTPU_MEMCACHE_MB). Writes through the serving layer invalidate
+        # every peer's memcache BEFORE acking, via the same peer channel
+        # bucket metadata rides (object/memcache.py).
+        from ..object.memcache import (
+            MemCacheConfig,
+            MemCacheObjectLayer,
+            MemObjectCache,
+        )
+
+        mem_cfg = MemCacheConfig.from_env()
+        self.memcache = MemObjectCache(mem_cfg) if mem_cfg else None
+        serving_layer = self.cache if cache_cfg else self.pools
+        if self.memcache is not None:
+            serving_layer = MemCacheObjectLayer(
+                serving_layer,
+                self.memcache,
+                on_invalidate=(
+                    lambda b, o: self.notification.invalidate_memcache_all(b, o)
+                ),
+            )
         s3 = S3Server(
-            self.pools,
+            serving_layer,
             self.iam,
             region=self.region,
             check_skew=False,
@@ -491,7 +521,7 @@ class Node:
         )
         # Metrics sources for the node exposition (drive series come through
         # metrics.layer; these feed heal/scanner progress and cluster fan-out).
-        # The memory cache reads None until Queue A item 8.8.
+        self.metrics.memcache = self.memcache
         self.metrics.node_url = self.url
         self.metrics.notification = self.notification
         self.metrics.scanner = self.scanner

@@ -9,7 +9,7 @@ pools. This is the object the API layer holds (its `ObjectAPI()`).
 Pools carry a lifecycle status (the decommission states of
 cmd/erasure-server-pool-decom.go): ACTIVE pools take new writes; SUSPENDED
 pools exist cluster-wide but do not place yet (the first phase of a two-phase
-attach, driven by the JAX package's object/poolmgr.py, not ported yet);
+attach, driven by object/poolmgr.py);
 DRAINING pools serve reads while their objects migrate out but never receive
 placements; DECOMMISSIONED pools are empty and skipped entirely. Placement
 (`_pool_with_space`) considers only ACTIVE pools; existence probes
@@ -36,8 +36,8 @@ from .types import (
 )
 
 # Pool lifecycle statuses (poolMeta decommission states, reference
-# cmd/erasure-server-pool-decom.go; in the JAX package the transitions are
-# owned by object/poolmgr.py, which is not ported yet).
+# cmd/erasure-server-pool-decom.go; the transitions are owned by
+# object/poolmgr.py).
 POOL_ACTIVE = "active"
 POOL_SUSPENDED = "suspended"
 POOL_DRAINING = "draining"

@@ -41,10 +41,10 @@ KERNEL = Kernel(
     error_symbol="hh256_error_string",
 )
 
-# The plain version runs ~100 small torch operations per 32-byte packet, and
-# each one hands the GIL back and forth: calls from many threads at once (the
-# GET's parallel shard reads) slow each other down by an order of magnitude.
-# One at a time is faster.
+# The plain version runs about a dozen small torch operations per 32-byte
+# packet, and each one hands the GIL back and forth: calls from many threads
+# at once (the GET's parallel shard reads) slow each other down. One at a
+# time is faster.
 _PLAIN_LOCK = threading.Lock()
 
 

@@ -9,8 +9,9 @@ the bits a logical shift keeps, and constants with the top bit set are
 written as their int64 two's-complement values.
 
 The hash is sequential per stream, so this version runs one batch of torch
-operations per 32-byte packet: right for the CPU tests and as the reference
-on the card, and no measure of speed.
+operations per 32-byte packet (about a dozen; the zipper merge is one byte
+gather): right for the CPU tests and as the reference on the card, and no
+measure of speed.
 """
 
 from __future__ import annotations
@@ -37,33 +38,19 @@ def _rot32(x: torch.Tensor) -> torch.Tensor:
     return _shr(x, 32) | (x << 32)
 
 
-def _zipper_pair(v0: torch.Tensor, v1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Zipper-merge terms of an (even, odd) lane pair (ops/highwayhash.py)."""
-    even = (
-        _shr((v0 & 0xFF000000) | (v1 & 0xFF00000000), 24)
-        | _shr((v0 & 0xFF0000000000) | (v1 & 0xFF000000000000), 16)
-        | (v0 & 0xFF0000)
-        | ((v0 & 0xFF00) << 32)
-        | _shr(v1 & _s64(0xFF00000000000000), 8)
-        | (v0 << 56)
-    )
-    odd = (
-        _shr((v1 & 0xFF000000) | (v0 & 0xFF00000000), 24)
-        | (v1 & 0xFF0000)
-        | _shr(v1 & 0xFF0000000000, 16)
-        | ((v1 & 0xFF00) << 24)
-        | _shr(v0 & 0xFF000000000000, 8)
-        | ((v1 & 0xFF) << 48)
-        | (v0 & _s64(0xFF00000000000000))
-    )
-    return even, odd
+# The zipper merge is a fixed byte permutation of each 16-byte (even, odd)
+# lane pair: output byte i is input byte _ZIPPER[i] of the pair, with the
+# even lane's bytes first (little-endian). One gather on a uint8 view of the
+# [N, 4] lanes computes all four terms.
+_ZIPPER_PAIR = [3, 12, 2, 5, 14, 1, 15, 0, 11, 4, 10, 13, 9, 6, 8, 7]
+_ZIPPER = torch.tensor(_ZIPPER_PAIR + [i + 16 for i in _ZIPPER_PAIR], dtype=torch.int64)
 
 
 def _zipper(v: torch.Tensor) -> torch.Tensor:
     """[N, 4] lanes -> [N, 4] zipper terms (pairs (0, 1) and (2, 3))."""
-    e0, o0 = _zipper_pair(v[:, 0], v[:, 1])
-    e1, o1 = _zipper_pair(v[:, 2], v[:, 3])
-    return torch.stack([e0, o0, e1, o1], dim=1)
+    index = _ZIPPER if v.device.type == "cpu" else _ZIPPER.to(v.device)
+    b = v.contiguous().view(torch.uint8)  # [N, 32]
+    return b.index_select(1, index).view(torch.int64)
 
 
 class _State:
@@ -84,12 +71,14 @@ class _State:
 
 def _update(st: _State, lanes: torch.Tensor) -> None:
     """One packet round; lanes: [N, 4] int64 (little-endian packet words)."""
+    # The state's tensors are its own (fresh results or clones), so all but
+    # the first step update them in place: fewer tensors made per packet.
     st.v1 = st.v1 + st.mul0 + lanes
-    st.mul0 = st.mul0 ^ ((st.v1 & _M32) * _shr(st.v0, 32))
-    st.v0 = st.v0 + st.mul1
-    st.mul1 = st.mul1 ^ ((st.v0 & _M32) * _shr(st.v1, 32))
-    st.v0 = st.v0 + _zipper(st.v1)
-    st.v1 = st.v1 + _zipper(st.v0)
+    st.mul0 ^= (st.v1 & _M32) * (st.v0 >> 32).bitwise_and_(_M32)
+    st.v0 += st.mul1
+    st.mul1 ^= (st.v0 & _M32) * (st.v1 >> 32).bitwise_and_(_M32)
+    st.v0 += _zipper(st.v1)
+    st.v1 += _zipper(st.v0)
 
 
 def _rotate_32_by(count: int, v: torch.Tensor) -> torch.Tensor:
