@@ -70,25 +70,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    14+2, SIPMOD+PARITY), built by ErasureSets.from_drives; pool 1 is 16
    drives, 1 set, attached later by ServerPools.add_pool (SUSPENDED, then
    ACTIVE) while pool 0 turns DRAINING. Every set shares the phase's codec.
-   512 objects (768 before the cut that made room for phase 12, 1,024
+   256 objects (512 before the cut that kept the script with phase 15
+   under 1,000 s, 768 before the one that made room for phase 12, 1,024
    before the one for phase 11, 2,048 before the one for phase 10) from
    one numpy generator (names
    tenant-XX/YYYY-MM-DD/obj-NNNNN over 16 tenants and 8 days, sizes
    log-uniform from 1 KiB to 4 MiB, one in 8 REDUCED_REDUNDANCY), from 16
-   client threads: 384 PUT into pool 0; 32 of them, of every size class
+   client threads: 192 PUT into pool 0; 32 of them, of every size class
    and both storage classes, PUT again into a numpy HostCodec copy of
    pool 0 must leave the same part files and inline data; the listing of
    pool 0 is exact in pages of 1,000 with and without a delimiter and a
    prefix, its second page served by the metacache, and
    list_object_versions pages through versioned overwrites and a delete
    marker with key and version markers; after the attach the
-   other 128 and 48 overwrites of pool-0 keys land in pool 1; every object's
-   xl.meta lies only on its hashed set's drives; a GET of all 512 is
+   other 64 and 24 overwrites of pool-0 keys land in pool 1; every object's
+   xl.meta lies only on its hashed set's drives; a GET of all 256 is
    byte-exact (an overwritten key reads its new bytes); the listing of both
    pools is exact without a delimiter (the delimiter listing and the
    version listing are printed, not held: the reference's multi-pool merges
    can skip keys and end a version listing early); delete_objects removes
-   128 keys from the listing; with the part files and xl.meta of 4 drives of pool
+   64 keys from the listing; with the part files and xl.meta of 4 drives of pool
    0's set 1 removed (2 of them for a 14+2 object), a GET of every object
    of that set is byte-exact and heal_object rebuilds each, byte-identical;
    heal_bucket recreates a drive's lost bucket directory. The PUTs, the
@@ -108,10 +109,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (api/streaming.encode_chunked), as minio-go does, and compares every
    body it reads with the bytes it made from the same seeds. Paths, each
    with the counts reset before it and read after:
-   - http_put: 256 new objects (tenant-XX/YYYY-MM-DD/http-NNNNN, phase 5's
-     size law, one in 8 REDUCED_REDUNDANCY); both kernels;
-   - http_get: those 256 and 128 of phase 5's surviving objects in pool 0
-     (256 before the cut that made room for phase 12; pool 1's lost one
+   - http_put: 128 new objects (256 before the cut that kept the script
+     with phase 15 under 1,000 s; tenant-XX/YYYY-MM-DD/http-NNNNN, phase
+     5's size law, one in 8 REDUCED_REDUNDANCY); both kernels;
+   - http_get: those 128 and 64 of phase 5's surviving objects in pool 0
+     (128 before that cut, 256 before the one that made room for phase 12;
+     pool 1's lost one
      drive's copy to phase 5's heal_bucket check),
      byte-exact; hh256, and rs_gf_apply only for windows where a hedged
      spare read beat a slow primary (at most 2 launches a winning hedge).
@@ -126,7 +129,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Then, with no rate: a HEAD, three Range GETs (first byte, a 1 MiB
    window, a suffix of 100) and an If-None-Match 304 per size class;
    ListObjectsV2 in pages of 1,000 equal to the layer's listing; POST
-   ?delete of 128 new keys, gone from the next listing; an unsigned GET
+   ?delete of 64 new keys (half of them), gone from the next listing; an unsigned GET
    (403 AccessDenied), a tampered signature (403 SignatureDoesNotMatch)
    and a PUT with X-Mtpu-Deadline 0.0005 (503 SlowDownWrite, not listed).
    Each path prints objects/s, GiB/s, the client's p50 and p99 latency, the
@@ -442,8 +445,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
    hashes, the launches of each path and the device time they take at
    phase 2's times.
 
+15. SelectObjectContent, the FS server and the gateways (s3select/,
+   object/fs.py, object/gateway.py, the CLI's one-path and gateway modes):
+   - 15a: a port Node in this process over 16 drives at parity 4 (12+4) on
+     the script's codec, served over HTTP; requests come signed from phase
+     6's client process. A 16 MiB CSV access log made from a numpy generator
+     (id,region,status,bytes,latency_ms,path, 58 bytes a row; 32 MiB before
+     the cut that kept the script under 1,000 s), a gzip CSV of
+     16 MiB before compression, 8 MiB of JSON lines and a Parquet object of
+     120,000 rows (the writer of tests/test_parquet.py, snappy) are PUT
+     (path select_put). Selects, each a path of its own: the aggregate
+     count(*), sum(cast(s.bytes as int)) WHERE s.status = '500'
+     (select_csv_aggregate), a projection WHERE cast(s.latency_ms as float)
+     > 900.0 (select_csv_projection), the aggregate again with drives 0, 5,
+     10 and 15 offline (select_csv_degraded), and one each over the gzip
+     CSV, the JSON lines and the Parquet object. Each Records payload
+     equals numpy's over the generated columns and each event stream an
+     in-process run_select over the original bytes; the degraded stream
+     equals the healthy one. hh256 must launch on every Select, rs_gf_apply
+     too on the degraded one; no host codec, no plain version.
+   - 15b: `python3 -m minio_tpu_torch server <root>/fs1` (the FS backend:
+     no probe, no codec): its online line says mode fs; a bucket, 4 PUTs
+     and GETs, a 3-part multipart upload of 11 MiB, a listing and a Select
+     over a 2 MiB CSV equal to run_select's; SIGTERM, exit 0.
+   - 15c: `python3 -m minio_tpu_torch gateway s3 <15a's endpoint>`: a
+     bucket and 16 PUTs of 1 MiB through it (path gateway_s3_put, both
+     kernels on 15a's node), each read back byte-exact through it and from
+     the node (gateway_s3_get), and the JSON Select through it equal to the
+     direct one (gateway_s3_select). `gateway nas <root>/nas`: a PUT, a
+     GET and a listing. Both exit 0 on SIGTERM.
+   Printed: each Select's seconds, MB/s and launches, the phase's seconds,
+   beside the card's name and power limit.
+
 The line before the last is a JSON object describing each kernel, with its
-launches by path (phases 7, 8a, 11, 12, 13 and 14 included); the last
+launches by path (phases 7, 8a, 11, 12, 13, 14 and 15 included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 
@@ -464,6 +499,7 @@ import os
 import re
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1439,7 +1475,7 @@ def _shape_summary(counts: dict) -> dict:
     return {"hh256": dict(sorted(hh.items())), "rs_gf_apply": dict(sorted(rs.items()))}
 
 
-def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 512, threads: int = 16,
+def phase_pools(smi: str, root: str, codec, tally: Tally, kernels: dict, n_objects: int = 256, threads: int = 16,
                 max_size: int = 4 * MiB, seed: int = 5, rates: dict | None = None) -> tuple[dict, SimpleNamespace]:
     """A 48-drive deployment through ServerPools: see the module docstring.
     Returns the paths' counts and the deployment as it stands after the
@@ -1960,9 +1996,9 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
         lat, wall = fan_out(one, names, threads)
         return {"latencies": lat, "wall": wall, "bytes": sum(len(objects[n]) for n in names)}
 
-    def multipart(name: str, part_size: int, threads: int) -> dict:
+    def multipart(name: str, part_size: int, threads: int, node: int = 0) -> dict:
         t0 = time.perf_counter()
-        st, _, body, dt0 = send("POST", f"/bench/{name}", [("uploads", "")])
+        st, _, body, dt0 = send("POST", f"/bench/{name}", [("uploads", "")], node=node)
         if st != 200:
             raise AssertionError(f"initiate {name}: {st} {body[:300]!r}")
         uid = ET.fromstring(body).findtext("{*}UploadId")
@@ -1971,7 +2007,7 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
 
         def part(n):
             st, h, b, dt = send("PUT", f"/bench/{name}", [("partNumber", str(n)), ("uploadId", uid)],
-                                body=data[(n - 1) * part_size: n * part_size])
+                                body=data[(n - 1) * part_size: n * part_size], node=node)
             if st != 200:
                 raise AssertionError(f"part {n} of {name}: {st} {b[:300]!r}")
             return dt, h["etag"]
@@ -1979,19 +2015,19 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
         xml = "".join(f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
                       for n, (_, e) in enumerate(out, 1))
         st, _, body, dt1 = send("POST", f"/bench/{name}", [("uploadId", uid)],
-                                body=f"<CompleteMultipartUpload>{xml}</CompleteMultipartUpload>".encode())
+                                body=f"<CompleteMultipartUpload>{xml}</CompleteMultipartUpload>".encode(), node=node)
         if st != 200:
             raise AssertionError(f"complete {name}: {st} {body[:300]!r}")
         return {"etag": ET.fromstring(body).findtext("{*}ETag"), "wall": time.perf_counter() - t0,
                 "latencies": [dt0, *(o[0] for o in out), dt1], "bytes": len(data), "parts": n_parts}
 
-    def list_v2(prefix: str, max_keys: int) -> dict:
+    def list_v2(prefix: str, max_keys: int, node: int = 0) -> dict:
         keys, token, pages = [], "", 0
         while True:
             q = [("list-type", "2"), ("max-keys", str(max_keys)), ("prefix", prefix)]
             if token:
                 q.append(("continuation-token", token))
-            st, _, body, _ = send("GET", "/bench", q)
+            st, _, body, _ = send("GET", "/bench", q, node=node)
             if st != 200:
                 raise AssertionError(f"ListObjectsV2: {st} {body[:300]!r}")
             root = ET.fromstring(body)
@@ -2128,10 +2164,21 @@ def _client_main(conn, endpoint: str, others: tuple = ()) -> None:
         st, _, body, _ = send("GET", path, fresh=True, node=node)
         return st, hashlib.sha256(body).hexdigest()
 
+    def register_blob(name: str, data: bytes) -> int:
+        objects[name] = memoryview(data)
+        return len(data)
+
+    def select(path: str, request_xml: bytes, node: int = 0) -> tuple:
+        """SelectObjectContent through one node: (status, the whole answer,
+        seconds from the request to its last byte)."""
+        st, _, body, dt = send("POST", path, [("select", ""), ("select-type", "2")], body=request_xml,
+                               fresh=True, node=node)
+        return st, body, dt
+
     ops = {"register": register, "register_bytes": register_bytes, "put": put, "put_some": put_some, "get": get,
            "multipart": multipart, "list_v2": list_v2, "ranges": ranges, "delete": delete, "request": request,
            "admin": admin, "request_as": request_as, "put_race": put_race, "fetch": fetch, "heads": heads,
-           "versions": versions, "empty_bucket": empty_bucket}
+           "versions": versions, "empty_bucket": empty_bucket, "register_blob": register_blob, "select": select}
     while True:
         msg = conn.recv()
         if msg[0] == "stop":
@@ -2180,7 +2227,7 @@ def _percentile(values: list, q: float) -> float:
 
 
 def phase_http(smi: str, state: SimpleNamespace, codec, tally: Tally, kernels: dict, rates: dict,
-               n_put: int = 256, n_get_old: int = 128, big_mib: int = 128, part_mib: int = 8,
+               n_put: int = 128, n_get_old: int = 64, big_mib: int = 128, part_mib: int = 8,
                threads: int = HTTP_THREADS, seed: int = 6, degraded_set: int = 0) -> dict:
     """Phase 5's deployment behind the port's S3Server, driven by signed
     HTTP from a client process: see the module docstring."""
@@ -2893,10 +2940,10 @@ def _free_port() -> int:
 
 
 class CliServer:
-    """One `python3 -m minio_tpu_torch server` process; a reader thread
-    keeps its output lines with their times since spawn."""
+    """One `python3 -m minio_tpu_torch server` (or `command`) process; a
+    reader thread keeps its output lines with their times since spawn."""
 
-    def __init__(self, args: list, port: int, env: dict | None = None):
+    def __init__(self, args: list, port: int, env: dict | None = None, command: str = "server"):
         self.port = port
         # PYTHONFAULTHANDLER: a server that will not stop dumps every
         # thread's stack on the SIGABRT stop() sends it.
@@ -2907,7 +2954,7 @@ class CliServer:
         full.update(env or {})
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "minio_tpu_torch", "server", "--json", "--address", f"127.0.0.1:{port}", *args],
+            [sys.executable, "-m", "minio_tpu_torch", command, "--json", "--address", f"127.0.0.1:{port}", *args],
             cwd=os.path.dirname(os.path.abspath(__file__)), env=full, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         self.lines: list = []
@@ -5343,6 +5390,471 @@ def phase_loadgen(smi: str, root: str, codec, tally: Tally, kernels: dict,
     return paths
 
 
+# -- phase 15: SelectObjectContent, the FS server and the gateways -----------------------------
+
+SEL_REGIONS = ("us-east-1", "us-west-2", "eu-west-1", "ap-south-1", "sa-east-1")
+SEL_STATUSES = ("200", "200", "200", "200", "304", "404", "500", "503")
+SEL_HEADER = "id,region,status,bytes,latency_ms,path"
+SEL_ROW_BYTES = 58  # the mean width of one access-log row below
+SEL_OFFLINE = (0, 5, 10, 15)  # the drives 15a takes offline for its degraded Select
+
+
+def _access_log(seed: int, nbytes: int) -> tuple[bytes, dict]:
+    """A CSV access log of about `nbytes` from a numpy generator, and its
+    columns: id,region,status,bytes,latency_ms,path (58 bytes a row)."""
+    n = max(1, nbytes // SEL_ROW_BYTES)
+    rng = np.random.default_rng(seed)
+    cols = {
+        "id": np.arange(n),
+        "region": rng.integers(0, len(SEL_REGIONS), n),
+        "status": rng.integers(0, len(SEL_STATUSES), n),
+        "bytes": rng.integers(0, 1 << 23, n),
+        "latency_cs": rng.integers(0, 100_000, n),
+        "tenant": rng.integers(0, TENANTS, n),
+        "obj": rng.integers(0, 100_000, n),
+    }
+    rows = [f"{i},{SEL_REGIONS[r]},{SEL_STATUSES[s]},{b},{c // 100}.{c % 100:02d},/v1/tenant-{t:02d}/o-{o:05d}"
+            for i, r, s, b, c, t, o in zip(*(cols[k].tolist() for k in cols))]
+    return ("\n".join([SEL_HEADER, *rows]) + "\n").encode(), cols
+
+
+def _access_json(seed: int, nbytes: int) -> tuple[bytes, dict]:
+    """The same log as JSON lines, about `nbytes`."""
+    n = max(1, nbytes // 118)
+    rng = np.random.default_rng(seed)
+    cols = {"region": rng.integers(0, len(SEL_REGIONS), n), "status": rng.integers(0, len(SEL_STATUSES), n),
+            "bytes": rng.integers(0, 1 << 23, n), "latency_cs": rng.integers(0, 100_000, n)}
+    rows = [json.dumps({"id": i, "region": SEL_REGIONS[r], "status": SEL_STATUSES[s], "bytes": b,
+                        "latency_ms": c / 100, "path": f"/v1/tenant-{i % TENANTS:02d}/o-{i:07d}"})
+            for i, (r, s, b, c) in enumerate(zip(*(cols[k].tolist() for k in cols)))]
+    return ("\n".join(rows) + "\n").encode(), cols
+
+
+def _thrift_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _thrift_zigzag(n: int) -> bytes:
+    return _thrift_varint((n << 1) ^ (n >> 63) if n < 0 else n << 1)
+
+
+def _snappy_compress_literal(data: bytes) -> bytes:
+    """Minimal valid snappy stream: one literal."""
+    out = bytearray(_thrift_varint(len(data)))
+    if not data:
+        return bytes(out)
+    length = len(data) - 1
+    if length < 60:
+        out.append(length << 2)
+    else:
+        extra = (length.bit_length() + 7) // 8
+        out.append((59 + extra) << 2)
+        out += length.to_bytes(extra, "little")
+    return bytes(out + data)
+
+
+class _ThriftWriter:
+    """Tiny thrift compact writer for the structs the parquet reader parses."""
+
+    def __init__(self):
+        self.buf = bytearray()
+        self.last_id = [0]
+
+    def field(self, fid: int, ctype: int):
+        delta = fid - self.last_id[-1]
+        if 0 < delta < 16:
+            self.buf.append((delta << 4) | ctype)
+        else:
+            self.buf.append(ctype)
+            self.buf += _thrift_zigzag(fid)
+        self.last_id[-1] = fid
+
+    def i32(self, fid: int, v: int):
+        self.field(fid, 5)
+        self.buf += _thrift_zigzag(v)
+
+    def i64(self, fid: int, v: int):
+        self.field(fid, 6)
+        self.buf += _thrift_zigzag(v)
+
+    def binary(self, fid: int, v: bytes):
+        self.field(fid, 8)
+        self.buf += _thrift_varint(len(v)) + v
+
+    def start_struct(self, fid: int):
+        self.field(fid, 12)
+        self.last_id.append(0)
+
+    def end_struct(self):
+        self.buf.append(0)
+        self.last_id.pop()
+
+    def start_list(self, fid: int, elem: int, size: int):
+        self.field(fid, 9)
+        if size < 15:
+            self.buf.append((size << 4) | elem)
+        else:
+            self.buf.append(0xF0 | elem)
+            self.buf += _thrift_varint(size)
+
+    def stop(self):
+        self.buf.append(0)
+        return bytes(self.buf)
+
+
+def _write_simple_parquet(int_col, str_col) -> bytes:
+    """One row group, two required columns (INT64 'n', UTF8 's'), PLAIN,
+    snappy pages (the writer of tests/test_parquet.py)."""
+    from minio_tpu_torch.s3select import parquet as pq
+
+    n = len(int_col)
+    blob = bytearray(pq.MAGIC)
+
+    def page(col_vals, ptype):
+        if ptype == pq.INT64:
+            body = struct.pack(f"<{n}q", *col_vals)
+        else:
+            body = b"".join(struct.pack("<i", len(v.encode())) + v.encode() for v in col_vals)
+        comp = _snappy_compress_literal(body)
+        w = _ThriftWriter()
+        w.i32(1, pq.PAGE_DATA)
+        w.i32(2, len(body))
+        w.i32(3, len(comp))
+        w.start_struct(5)  # DataPageHeader
+        w.i32(1, n)
+        w.i32(2, pq.ENC_PLAIN)
+        w.i32(3, pq.ENC_RLE)
+        w.i32(4, pq.ENC_RLE)
+        w.end_struct()
+        return w.stop() + comp
+
+    offsets = []
+    for vals, ptype in ((int_col, pq.INT64), (str_col, pq.BYTE_ARRAY)):
+        offsets.append(len(blob))
+        blob += page(vals, ptype)
+
+    def schema_el(name, ptype=None, conv=None):
+        w = _ThriftWriter()
+        if ptype is not None:
+            w.i32(1, ptype)
+            w.i32(3, 0)  # required
+        w.binary(4, name.encode())
+        if ptype is None:
+            w.i32(5, 2)  # num_children on root
+        if conv is not None:
+            w.i32(6, conv)
+        return w.stop()
+
+    fmd = _ThriftWriter()
+    fmd.i32(1, 1)  # version
+    fmd.start_list(2, 12, 3)
+    for el in (schema_el("root"), schema_el("n", pq.INT64), schema_el("s", pq.BYTE_ARRAY, conv=0)):
+        fmd.buf += el
+    fmd.i64(3, n)  # num_rows
+    fmd.start_list(4, 12, 1)
+    rg = _ThriftWriter()
+    rg.start_list(1, 12, 2)  # columns
+    for off, (ptype, name) in zip(offsets, ((pq.INT64, b"n"), (pq.BYTE_ARRAY, b"s"))):
+        cc = _ThriftWriter()
+        cc.start_struct(3)  # meta_data
+        cc.i32(1, ptype)
+        cc.start_list(3, 8, 1)  # path_in_schema
+        cc.buf += _thrift_varint(len(name)) + name
+        cc.i32(4, pq.CODEC_SNAPPY)
+        cc.i64(5, n)
+        cc.i64(7, 0)
+        cc.i64(9, off)  # data_page_offset
+        cc.end_struct()
+        rg.buf += cc.stop()
+    rg.i64(2, 0)
+    rg.i64(3, n)
+    fmd.buf += rg.stop()
+    meta = fmd.stop()
+    blob += meta
+    blob += struct.pack("<I", len(meta)) + pq.MAGIC
+    return bytes(blob)
+
+
+def _select_xml(expression: str, input_xml: str, output_xml: str = "<CSV/>") -> bytes:
+    from xml.sax.saxutils import escape
+
+    return (f"<SelectObjectContentRequest><Expression>{escape(expression)}</Expression>"
+            f"<ExpressionType>SQL</ExpressionType><InputSerialization>{input_xml}</InputSerialization>"
+            f"<OutputSerialization>{output_xml}</OutputSerialization></SelectObjectContentRequest>").encode()
+
+
+def _records(frames: bytes) -> tuple[bytes, list]:
+    """The Records payload of an event stream and the kinds of its messages."""
+    from minio_tpu_torch.s3select import decode_messages
+
+    msgs = list(decode_messages(frames))
+    kinds = [m["headers"].get(":event-type") or m["headers"].get(":error-code") for m in msgs]
+    return b"".join(m["payload"] for m in msgs if m["headers"].get(":event-type") == "Records"), kinds
+
+
+def phase_select(smi: str, root: str, codec, tally: Tally, device: str = "cuda", csv_mib: int = 16,
+                 gz_mib: int = 16, json_mib: int = 8, parquet_rows: int = 120_000, n_gateway: int = 16,
+                 fs_mib: int = 2) -> dict:
+    """Phase 15: SelectObjectContent (s3select/), the one-drive FS server
+    (object/fs.py) and the NAS and S3 gateways (object/gateway.py) on the
+    card. 15a: a port Node in this process over 16 drives at parity 4 on the
+    script's codec, served over HTTP; a csv_mib access log Selected healthy
+    (an aggregate, a projection with a float WHERE) and with 4 drives
+    offline (the aggregate again), a gzip CSV of gz_mib, json_mib of JSON
+    lines and a Parquet object of parquet_rows rows, each held against numpy
+    and against an in-process run_select over the original bytes. 15b:
+    `python -m minio_tpu_torch server <one dir>` (the FS backend) driven
+    with a bucket, PUTs, GETs, a listing, a 3-part multipart upload and a
+    Select, then SIGTERM. 15c: `gateway s3` in front of 15a's node (n_gateway
+    1 MiB PUTs, GETs through it and directly, a Select through it) and
+    `gateway nas` (a PUT, a GET, a listing). The kernel counts are zeroed
+    before each node path and read after: hh256 on every Select, rs_gf_apply
+    too on the degraded one and on the PUTs. Returns the counts by path."""
+    import gzip
+
+    from minio_tpu_torch import cli
+    from minio_tpu_torch.dist.node import Node
+    from minio_tpu_torch.s3select import S3SelectRequest, run_select
+
+    t_phase = time.perf_counter()
+    paths: dict = {}
+    base = os.path.join(root, "select")
+    dirs = [os.path.join(base, "node", _drive_name(i)) for i in range(DRIVES)]
+    port, fs_port, gw_port, nas_port = (_free_port() for _ in range(4))
+    endpoint = f"http://127.0.0.1:{port}"
+    node = Node(dirs, root_user=HTTP_CREDS[0], root_password=HTTP_CREDS[1], parity=M, codec=codec, device=device)
+    stop = threading.Event()
+    thread, errs = cli._run_app_until(node.make_app(), "127.0.0.1", port, stop)
+    if errs:
+        raise AssertionError(f"15: the node's app did not start: {errs}")
+    # The three servers boot while 15a runs; none builds a codec.
+    children = {
+        "fs": CliServer([os.path.join(base, "fs1")], fs_port),
+        "gateway-s3": CliServer(["s3", endpoint], gw_port, command="gateway"),
+        "gateway-nas": CliServer(["nas", os.path.join(base, "nas")], nas_port, command="gateway"),
+    }
+    client = None
+    try:
+        node.build()
+        if node.codec is not codec:
+            raise AssertionError(f"15: the node serves {type(node.codec).__name__}, not the script's codec")
+        client = HttpClient(endpoint, tuple(f"http://127.0.0.1:{p}" for p in (fs_port, gw_port, nas_port)))
+        fs_node, gw_node, nas_node = 1, 2, 3
+
+        def counted(path: str, fn, need=("rs_gf_apply", "hh256")):
+            tally.reset()
+            t0 = time.perf_counter()
+            out = fn()
+            wall = time.perf_counter() - t0
+            paths[path] = tally.read(path, need)
+            _no_host_fallback(codec, path)
+            return out, wall
+
+        # -- 15a: the objects, PUT into a 12+4 set ---------------------------------------------------
+        t = time.perf_counter()
+        csv, cols = _access_log(150, csv_mib * MiB)
+        gz_plain, gz_cols = _access_log(151, gz_mib * MiB)
+        gz = gzip.compress(gz_plain, compresslevel=6, mtime=0)
+        jsl, js_cols = _access_json(152, json_mib * MiB)
+        pq_rng = np.random.default_rng(153)
+        pq_n = pq_rng.integers(0, 1 << 23, parquet_rows)
+        pq_s = pq_rng.integers(0, len(SEL_REGIONS), parquet_rows)
+        parquet = _write_simple_parquet(pq_n.tolist(), [SEL_REGIONS[i] for i in pq_s.tolist()])
+        objects = {"access.csv": csv, "access.csv.gz": gz, "access.json": jsl, "access.parquet": parquet}
+        log(f"15a data made in {time.perf_counter() - t:.2f} s: CSV {len(csv)} bytes ({len(cols['id'])} rows, "
+            f"{len(csv) / len(cols['id']):.1f} bytes a row), gzip CSV {len(gz)} bytes ({len(gz_plain)} before "
+            f"compression), JSON lines {len(jsl)} bytes ({len(js_cols['bytes'])} rows), Parquet {len(parquet)} "
+            f"bytes ({parquet_rows} rows, snappy)")
+        for name, data in objects.items():
+            client.call("register_blob", name, data)
+        if client.call("request", "PUT", "/sel")[0] != 200:
+            raise AssertionError("15a: PUT /sel")
+        res, wall = counted("select_put", lambda: client.call("put", list(objects), {}, 4, None, "sel"))
+        log(f"15a select_put: {len(objects)} objects, {res['bytes']} bytes in {wall:.3f} s "
+            f"({res['bytes'] / wall / 1e6:.1f} MB/s) [{smi}]")
+
+        use = "<CSV><FileHeaderInfo>USE</FileHeaderInfo></CSV>"
+        agg = "SELECT count(*), sum(cast(s.bytes as int)) FROM S3Object s WHERE s.status = '500'"
+        proj = "SELECT s.id, s.path FROM S3Object s WHERE cast(s.latency_ms as float) > 900.0"
+
+        def status_500(c: dict) -> str:
+            hit = np.asarray(SEL_STATUSES)[c["status"]] == "500"
+            return f"{int(hit.sum())},{int(c['bytes'][hit].sum())}\n"
+
+        hit = cols["latency_cs"] > 90_000
+        proj_want = "".join(f"{i},/v1/tenant-{t:02d}/o-{o:05d}\n" for i, t, o in zip(
+            cols["id"][hit].tolist(), cols["tenant"][hit].tolist(), cols["obj"][hit].tolist()))
+        eu = pq_s == SEL_REGIONS.index("eu-west-1")
+        js_eu = js_cols["region"] == SEL_REGIONS.index("eu-west-1")
+        queries = {
+            # path: (key, expression, input, output, numpy's Records payload)
+            "select_csv_aggregate": ("access.csv", agg, use, "<CSV/>", status_500(cols)),
+            "select_csv_projection": ("access.csv", proj, use, "<CSV/>", proj_want),
+            "select_csv_degraded": ("access.csv", agg, use, "<CSV/>", status_500(cols)),
+            "select_gzip_csv": ("access.csv.gz", agg, f"<CompressionType>GZIP</CompressionType>{use}", "<CSV/>",
+                                status_500(gz_cols)),
+            "select_json_lines": ("access.json", "SELECT count(*), sum(s.bytes) FROM S3Object s "
+                                  "WHERE s.region = 'eu-west-1'", "<JSON><Type>LINES</Type></JSON>", "<CSV/>",
+                                  f"{int(js_eu.sum())},{int(js_cols['bytes'][js_eu].sum())}\n"),
+            "select_parquet": ("access.parquet", "SELECT count(*), sum(s.n) FROM S3Object s WHERE s.s = 'eu-west-1'",
+                               "<Parquet/>", "<CSV/>", f"{int(eu.sum())},{int(pq_n[eu].sum())}\n"),
+        }
+        answers: dict = {}
+        reference: dict = {}
+        eo = node.pools.pools[0].sets[0]
+        for path, (key, expression, input_xml, output_xml, want) in queries.items():
+            body = _select_xml(expression, input_xml, output_xml)
+            offline = {}
+            if path == "select_csv_degraded":
+                offline = {i: eo.disks[i] for i in SEL_OFFLINE}
+                for i in SEL_OFFLINE:
+                    eo.disks[i] = None
+            try:
+                need = ("rs_gf_apply", "hh256") if offline else ("hh256",)
+                (st, frames, dt), wall = counted(path, lambda: client.call("select", f"/sel/{key}", body), need)
+            finally:
+                for i, d in offline.items():
+                    eo.disks[i] = d
+            if st != 200:
+                raise AssertionError(f"15a {path}: status {st}: {frames[:300]!r}")
+            payload, kinds = _records(frames)
+            if kinds[-2:] != ["Stats", "End"] or payload.decode() != want:
+                raise AssertionError(f"15a {path}: messages {kinds}, Records {payload[:200]!r}, numpy says "
+                                     f"{want[:200]!r}")
+            ref_key = (key, expression)
+            if ref_key not in reference:
+                t = time.perf_counter()
+                reference[ref_key] = b"".join(run_select(S3SelectRequest.from_xml(body),
+                                                         lambda _o, _n, _d=objects[key]: _d))
+                ref_s = time.perf_counter() - t
+            else:
+                ref_s = None
+            if frames != reference[ref_key]:
+                raise AssertionError(f"15a {path}: the event stream differs from run_select's over the "
+                                     f"original bytes ({len(frames)} and {len(reference[ref_key])} bytes)")
+            answers[path] = frames
+            counts = paths[path]["launches"]
+            size = len(objects[key])
+            log(f"15a {path}: {key} ({size} bytes{', drives ' + str(list(SEL_OFFLINE)) + ' offline' if offline else ''})"
+                f" in {dt:.3f} s at the client, {size / dt / 1e6:.2f} MB/s; Records {len(payload)} bytes equal "
+                f"numpy's; the event stream equals run_select's"
+                + (f" (in-process run_select {ref_s:.3f} s, {size / ref_s / 1e6:.2f} MB/s)" if ref_s else "")
+                + f"; launches hh256 {counts['hh256']}, rs_gf_apply {counts['rs_gf_apply']} [{smi}]")
+        if answers["select_csv_degraded"] != answers["select_csv_aggregate"]:
+            raise AssertionError("15a: the degraded Select's event stream differs from the healthy one's")
+        log("15a: the degraded Select's event stream equals the healthy one's byte for byte")
+
+        # -- 15b: the one-drive FS server ------------------------------------------------------------
+        t15b = time.perf_counter()
+        fs = children["fs"]
+        online_s, line = fs.online()
+        if line.get("mode") != "fs" or {"codec", "probe"} & set(line):
+            raise AssertionError(f"15b: the FS server's online line {line}")
+        if client.call("request", "PUT", "/bench", (), None, b"", True, False, fs_node)[0] != 200:
+            raise AssertionError("15b: PUT /bench on the FS server")
+        fs_names = [f"fs-{i:02d}.bin" for i in range(4)]
+        for i, name in enumerate(fs_names):
+            client.call("register_bytes", name, 1500 + i, (i + 1) * MiB // 2)
+        where = {n: fs_node for n in fs_names}
+        client.call("put", fs_names, {}, 4, where)
+        client.call("get", fs_names, 4, where)
+        client.call("register_bytes", "fs-multipart.bin", 1510, 11 * MiB)
+        mp = client.call("multipart", "fs-multipart.bin", 5 * MiB, 3, fs_node)
+        if mp["parts"] != 3 or not mp["etag"].strip('"').endswith("-3"):
+            raise AssertionError(f"15b: multipart {mp}")
+        client.call("get", ["fs-multipart.bin"], 1, {"fs-multipart.bin": fs_node})
+        fs_csv, fs_cols = _access_log(154, fs_mib * MiB)
+        client.call("register_blob", "fs-log.csv", fs_csv)
+        client.call("put", ["fs-log.csv"], {}, 1, {"fs-log.csv": fs_node})
+        keys = client.call("list_v2", "", 1000, fs_node)["keys"]
+        if keys != sorted([*fs_names, "fs-multipart.bin", "fs-log.csv"]):
+            raise AssertionError(f"15b: the FS listing {keys}")
+        body = _select_xml(agg, use)
+        st, frames, dt = client.call("select", "/bench/fs-log.csv", body, fs_node)
+        want = b"".join(run_select(S3SelectRequest.from_xml(body), lambda _o, _n: fs_csv))
+        if st != 200 or frames != want or _records(frames)[0].decode() != status_500(fs_cols):
+            raise AssertionError(f"15b: the FS Select: {st} {frames[:300]!r}")
+        rc, secs = fs.stop()
+        if rc != 0:
+            raise AssertionError(f"15b: the FS server exited {rc}: {fs.text()[-2000:]}")
+        log(f"15b FS server: online {online_s:.2f} s after its spawn ({json.dumps(line)}); bucket, 4 PUTs and "
+            f"GETs, a 3-part multipart upload ({mp['etag']}), a listing of {len(keys)} keys, a Select over "
+            f"{len(fs_csv)} bytes in {dt:.3f} s equal to run_select's; SIGTERM, exit 0 in {secs:.2f} s; "
+            f"{time.perf_counter() - t15b:.1f} s")
+
+        # -- 15c: the S3 gateway in front of 15a's node, and the NAS gateway -------------------------
+        t15c = time.perf_counter()
+        gw = children["gateway-s3"]
+        gw_online, gw_line = gw.online()
+        if gw_line.get("mode") != "gateway-s3" or {"codec", "probe"} & set(gw_line):
+            raise AssertionError(f"15c: the S3 gateway's online line {gw_line}")
+        st, _, answer = client.call("request", "PUT", "/gwbkt", (), None, b"", True, False, gw_node)
+        if st != 200:
+            raise AssertionError(f"15c: PUT /gwbkt through the S3 gateway: {st} {answer[:300]!r}; its log's end:\n"
+                                 f"{gw.text()[-2000:]}")
+        gw_names = [f"gw-{i:02d}.bin" for i in range(n_gateway)]
+        for i, name in enumerate(gw_names):
+            client.call("register_bytes", name, 1600 + i, MiB)
+        res, wall = counted("gateway_s3_put",
+                            lambda: client.call("put", gw_names, {}, 8, {n: gw_node for n in gw_names}, "gwbkt"))
+        log(f"15c gateway_s3_put: {n_gateway} x 1 MiB through the gateway in {wall:.3f} s "
+            f"({n_gateway / wall:.1f} objects/s) [{smi}]")
+
+        def get_both():
+            client.call("get", gw_names, 8, {n: gw_node for n in gw_names}, "gwbkt")
+            client.call("get", gw_names, 8, None, "gwbkt")
+
+        _, wall = counted("gateway_s3_get", get_both, ("hh256",))
+        log(f"15c gateway_s3_get: {n_gateway} objects byte-exact through the gateway and from the node in "
+            f"{wall:.3f} s")
+        key, expression, input_xml, output_xml, _ = queries["select_json_lines"]
+        body = _select_xml(expression, input_xml, output_xml)
+        (st, frames, dt), _ = counted("gateway_s3_select",
+                                      lambda: client.call("select", f"/sel/{key}", body, gw_node), ("hh256",))
+        if st != 200 or frames != answers["select_json_lines"]:
+            raise AssertionError(f"15c: the Select through the gateway: {st}, {len(frames)} bytes, not the "
+                                 f"direct Select's {len(answers['select_json_lines'])}")
+        log(f"15c gateway_s3_select: {key} through the gateway in {dt:.3f} s, the direct Select's bytes")
+        nas = children["gateway-nas"]
+        nas_online, nas_line = nas.online()
+        if nas_line.get("mode") != "gateway-nas":
+            raise AssertionError(f"15c: the NAS gateway's online line {nas_line}")
+        if client.call("request", "PUT", "/bench", (), None, b"", True, False, nas_node)[0] != 200:
+            raise AssertionError("15c: PUT /bench on the NAS gateway")
+        client.call("register_bytes", "nas.bin", 1700, 3 * MiB)
+        client.call("put", ["nas.bin"], {}, 1, {"nas.bin": nas_node})
+        client.call("get", ["nas.bin"], 1, {"nas.bin": nas_node})
+        if client.call("list_v2", "", 1000, nas_node)["keys"] != ["nas.bin"]:
+            raise AssertionError("15c: the NAS listing")
+        for name in ("gateway-s3", "gateway-nas"):
+            rc, secs = children[name].stop()
+            if rc != 0:
+                raise AssertionError(f"15c: {name} exited {rc}: {children[name].text()[-2000:]}")
+        log(f"15c: S3 gateway online {gw_online:.2f} s after its spawn ({json.dumps(gw_line)}), NAS gateway "
+            f"{nas_online:.2f} s ({json.dumps(nas_line)}); a PUT, a GET and a listing through the NAS gateway; "
+            f"both exited 0 on SIGTERM; {time.perf_counter() - t15c:.1f} s")
+    finally:
+        if client is not None:
+            client.close()
+        for srv in children.values():
+            if srv.proc.poll() is None:
+                with contextlib.suppress(Exception):
+                    srv.stop()
+        stop.set()
+        thread.join(10)
+        node.close()
+        Node.close_all()
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5402,6 +5914,8 @@ def main() -> int:
         log_phase_end("phase 13")
         paths.update(phase_loadgen(smi, root, codec, tally, kernels))
         log_phase_end("phase 14")
+        paths.update(phase_select(smi, root, codec, tally))
+        log_phase_end("phase 15")
     finally:
         tally.uninstall()
         codec.close()

@@ -17,9 +17,8 @@ on the drives, and the same instrumentation hooks: the request root span
 and its child spans, the ops/s ring, the degrade records, the copy-ledger
 hops, GLOBAL_LOGGER and the bucket events of `notifier` (control/events.py,
 with ListenNotification over api/streams.py), the replication and site
-replication hooks and STS (api/sts.py). SelectObjectContent, whose module is
-not ported yet, answers NotImplemented from `_not_ported` (ROADMAP.md, Queue
-A item 8.7).
+replication hooks, STS (api/sts.py) and SelectObjectContent (s3select/),
+which reads the object through the layer's GET like any other reader.
 """
 
 from __future__ import annotations
@@ -30,7 +29,6 @@ import contextlib
 import datetime
 import hashlib
 import json
-import logging
 import re
 import secrets
 import threading
@@ -65,16 +63,6 @@ from . import zipext
 from .auth import SigV4Verifier, UNSIGNED_PAYLOAD
 from .errors import S3Error, from_object_error
 from ..control.sanitizer import san_lock
-
-_log = logging.getLogger(__name__)
-
-
-def _not_ported(route: str) -> S3Error:
-    """The one answer of every route whose module this slice does not port
-    (ROADMAP.md, Queue A item 8.7): "select" (s3select). The error is the
-    JAX front's bare NotImplemented."""
-    _log.debug("route not ported: %s", route)
-    return S3Error("NotImplemented")
 
 
 MAX_OBJECT_SIZE = 5 * (1 << 30)  # single-PUT cap, matching S3
@@ -2674,10 +2662,42 @@ class S3Server:
     ) -> web.Response:
         """SelectObjectContent — SQL over an object, event-stream response.
 
-        Reference: object-handlers.go SelectObjectContentHandler; the JAX
-        package's s3select is not ported yet.
+        Reference: object-handlers.go SelectObjectContentHandler +
+        internal/s3select (re-designed in minio_tpu_torch/s3select/).
         """
-        raise _not_ported("select")
+        from ..s3select import S3SelectRequest, run_select
+        from ..s3select.select import SelectError
+
+        def select_err(e: SelectError) -> web.Response:
+            return _xml(
+                f"<Error><Code>{escape(e.code)}</Code>"
+                f"<Message>{escape(e.message)}</Message>"
+                f"<Resource>/{escape(bucket)}/{escape(key)}</Resource>"
+                "</Error>",
+                e.status,
+            )
+
+        try:
+            sreq = S3SelectRequest.from_xml(body)
+        except SelectError as e:
+            return select_err(e)
+
+        def get_data(_off, _ln) -> bytes:
+            return self._read_logical(bucket, key, request)[1]
+
+        # No separate existence probe: the response is fully buffered below,
+        # so a NoSuchKey raised by the first get_data still surfaces as a
+        # plain S3 error via the dispatcher (no event stream has started) —
+        # and _read_logical already probes once per read.
+        try:
+            frames = list(run_select(sreq, get_data))
+        except SelectError as e:
+            return select_err(e)
+        return web.Response(
+            status=200,
+            body=b"".join(frames),
+            headers={"Content-Type": "application/octet-stream"},
+        )
 
     def _restore_object(self, bucket: str, key: str, q, body: bytes) -> web.Response:
         """POST ?restore: materialize a transitioned object locally for N days

@@ -14,6 +14,9 @@ Usage:
     python -m minio_tpu_torch server --device cpu /tmp/disk{1...4}
     python -m minio_tpu_torch server --url http://10.0.0.1:9000 \
         http://10.0.0.{1...4}:9000/mnt/disk{1...16}
+    python -m minio_tpu_torch server /data/one            # one path: the FS backend
+    python -m minio_tpu_torch gateway nas /mnt/shared
+    python -m minio_tpu_torch gateway s3 http://10.0.0.1:9000
     python -m minio_tpu_torch update file:///mirror [--apply]
 
 Every node of a cluster gets the same ordered endpoint list and its own
@@ -23,6 +26,10 @@ Every node of a cluster gets the same ordered endpoint list and its own
 card in a bounded child and serves through its kernels; without a working
 card the boot fails (FATAL, exit 1) -- there is no host fallback. ``cpu``
 runs the kernels' plain torch versions, because the caller asked for it.
+One path with no erasure format.json, and the ``gateway`` command, serve the
+S3 front over plain files (object/fs.py) or a backing S3 endpoint
+(object/gateway.py): they run no erasure, so they start no probe and build
+no codec, and ``--device`` does not apply to them.
 
 Env (reference names kept where the semantic matches, common-main.go
 serverHandleEnvVars):
@@ -36,6 +43,8 @@ serverHandleEnvVars):
                                                port (api/prefork.py), each with
                                                its own probe and codec
     MTPU_WORKER_RESPAWNS                       respawns per worker slot (2)
+    MINIO_GATEWAY_ACCESS_KEY / _SECRET_KEY     backing S3 credentials of
+    MINIO_GATEWAY_REGION                       `gateway s3` (default: root's)
 """
 
 from __future__ import annotations
@@ -53,10 +62,6 @@ import time
 
 _ELLIPSIS = re.compile(r"\{(\d+)\.\.\.(\d+)\}")
 
-# Commands and modes whose modules the port does not have yet: each exits 2
-# naming the module it waits for (ROADMAP.md, Queue A item 8.8: object/fs.py
-# and object/gateway.py, after the caches).
-_NOT_PORTED_EXIT = 2
 # Seconds a SIGTERMed server waits for its scanner to reach its next object.
 SCANNER_GRACE_S = 10.0
 
@@ -137,12 +142,6 @@ def _log(quiet: bool, as_json: bool, **fields) -> None:
     sys.stdout.flush()
 
 
-def _not_ported(what: str, module: str) -> int:
-    print(f"{what} is not ported yet: it waits for {module} (ROADMAP.md, Queue A item 8.8)",
-          file=sys.stderr)
-    return _NOT_PORTED_EXIT
-
-
 def serve(argv: list[str]) -> int:
     p = argparse.ArgumentParser(prog="minio_tpu_torch server")
     p.add_argument("endpoints", nargs="+", help="drive paths/URLs, {a...b} ellipses supported")
@@ -188,18 +187,6 @@ def serve(argv: list[str]) -> int:
         _log(a.quiet, a.json, msg="prefork", workers=n_workers, detail=why)
         return prefork.run_master(n_workers, lambda _wid: serve(argv))
 
-    if a.device == "cuda" and os.environ.get("MINIO_TPU_CODEC", "auto").lower() == "auto":
-        # Spawn the probe child before this process imports torch: the two
-        # overlap, and Node.build() waits for the verdict.
-        from . import runtime
-
-        runtime.start_probe()
-
-    if not a.no_selftest:
-        t0 = time.perf_counter()
-        boot_self_test()
-        _log(a.quiet, a.json, msg="self-tests passed", seconds=round(time.perf_counter() - t0, 3))
-
     try:
         # Multi-pool rule (the reference's endpoint-ellipses multi-arg
         # semantics): when more than one argument carries an ellipsis
@@ -225,20 +212,44 @@ def serve(argv: list[str]) -> int:
             n_endpoints = len(endpoints)
     except ValueError as e:
         p.error(str(e))
-    _log(a.quiet, a.json, msg="endpoints", count=n_endpoints)
-
     host, port = _parse_address(p, a.address)
 
-    if (
+    # Single path -> FS backend, no erasure (the reference picks FS for one
+    # endpoint, server-main.go:636-643) -- UNLESS the path already holds an
+    # erasure format from an earlier deployment; silently switching backends
+    # would hide all existing data. Decided before the probe: the FS backend
+    # builds no codec and starts no probe.
+    single_path = (
         len(endpoints) == 1
         and isinstance(endpoints[0], str)
         and not endpoints[0].startswith(("http://", "https://"))
+    )
+    fs_mode = single_path and not os.path.exists(
+        os.path.join(endpoints[0], ".minio_tpu.sys", "format.json")
+    )
+
+    if (
+        not fs_mode
+        and a.device == "cuda"
+        and os.environ.get("MINIO_TPU_CODEC", "auto").lower() == "auto"
     ):
-        # Single path -> FS backend, no erasure (server-main.go:636-643) --
-        # unless the path already holds an erasure format.
-        erasure_fmt = os.path.join(endpoints[0], ".minio_tpu.sys", "format.json")
-        if not os.path.exists(erasure_fmt):
-            return _not_ported("the FS backend (one drive, no erasure format)", "object/fs.py")
+        # Spawn the probe child before this process imports torch: the two
+        # overlap, and Node.build() waits for the verdict.
+        from . import runtime
+
+        runtime.start_probe()
+
+    if not a.no_selftest:
+        t0 = time.perf_counter()
+        boot_self_test()
+        _log(a.quiet, a.json, msg="self-tests passed", seconds=round(time.perf_counter() - t0, 3))
+    _log(a.quiet, a.json, msg="endpoints", count=n_endpoints)
+
+    if fs_mode:
+        return _serve_simple_layer(
+            "fs", endpoints[0], host, port, root_user, root_password, region, a
+        )
+    if single_path:
         _log(a.quiet, a.json, msg="existing erasure format found; staying on erasure backend")
 
     from .dist.node import Node
@@ -406,6 +417,106 @@ def _run_app_until(app, host, port, stop_evt):
     return t, []
 
 
+def _serve_simple_layer(kind, target, host, port, root_user, root_password, region, a) -> int:
+    """Serve an S3 front over a non-erasure layer (FS backend / gateways) —
+    the reference's gateway-main.go + FS server path. No probe and no codec:
+    these layers run no erasure on this node."""
+    from aiohttp import web
+
+    from .api.admin import ADMIN_PREFIX, make_admin_app, AdminContext
+    from .api.server import S3Server
+    from .control.config import ConfigSys
+    from .control.iam import IAMSys
+
+    if kind == "fs":
+        from .object.fs import FSObjectLayer
+
+        layer = FSObjectLayer(target)
+    elif kind == "nas":
+        from .object.gateway import NASGateway
+
+        layer = NASGateway(target)
+    elif kind == "s3":
+        from .object.gateway import S3Gateway
+
+        layer = S3Gateway(
+            target,
+            os.environ.get("MINIO_GATEWAY_ACCESS_KEY", root_user),
+            os.environ.get("MINIO_GATEWAY_SECRET_KEY", root_password),
+            region=os.environ.get("MINIO_GATEWAY_REGION", region),
+        )
+    else:
+        print(f"unknown gateway type {kind!r}; supported: nas, s3", file=sys.stderr)
+        return 2
+
+    config = ConfigSys()
+    iam = IAMSys(root_user, root_password)
+    # Gateway mode has no erasure meta bucket to persist IAM into; etcd is
+    # the reference's answer there (iam.go picks the etcd store whenever
+    # one is configured) — without it, gateway IAM is memory-only.
+    from .control.etcd import etcd_store_from_env
+    from .utils import errors as _errs
+
+    etcd_store = etcd_store_from_env()
+    if etcd_store is not None:
+        iam.store = etcd_store
+        try:
+            iam.load()
+        except _errs.FileCorrupt as e:
+            # Wrong root credential, not an outage: serving with zero
+            # identities would mask the misconfiguration. Fail the boot.
+            print(f"fatal: etcd IAM store unseal failed ({e})", file=sys.stderr)
+            return 1
+        except _errs.StorageError as e:
+            print(f"warning: etcd IAM store unreadable ({e}); IAM is memory-only", file=sys.stderr)
+            iam.store = None
+    srv = S3Server(layer, iam, region=region, check_skew=False, config=config)
+    app = web.Application(client_max_size=1 << 31)
+    app.add_subapp(
+        ADMIN_PREFIX,
+        make_admin_app(AdminContext(layer=layer, iam=iam, verifier=srv.verifier, config=config)),
+    )
+    app.router.add_route("*", "/{tail:.*}", srv._entry)
+
+    stop_evt = threading.Event()
+    t, startup_errors = _run_app_until(app, host, port, stop_evt)
+    if startup_errors:
+        print(f"FATAL: HTTP server failed to start: {startup_errors[0]}", file=sys.stderr)
+        return 1
+
+    def _shutdown(signum, frame):
+        _log(a.quiet, a.json, msg="shutting down", signal=signum)
+        stop_evt.set()
+
+    signal.signal(signal.SIGINT, _shutdown)
+    signal.signal(signal.SIGTERM, _shutdown)
+    mode = "fs" if kind == "fs" else f"gateway-{kind}"
+    _log(a.quiet, a.json, msg="online", mode=mode, target=target,
+         s3=f"http://{host}:{port}")
+    while not stop_evt.is_set():
+        time.sleep(0.2)
+    t.join(5)
+    return 0
+
+
+def gateway(argv: list[str]) -> int:
+    """`python -m minio_tpu_torch gateway nas|s3 <target>`: the S3 front over
+    a shared mount or a backing S3 endpoint (cmd/gateway-main.go role)."""
+    p = argparse.ArgumentParser(prog="minio_tpu_torch gateway")
+    p.add_argument("type", choices=["nas", "s3"], help="gateway backend type")
+    p.add_argument("target", help="NAS mount path or backing S3 endpoint URL")
+    p.add_argument("--address", default=":9000")
+    p.add_argument("--region", default="")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--json", action="store_true")
+    a = p.parse_args(argv)
+    root_user = os.environ.get("MINIO_ROOT_USER", "minioadmin")
+    root_password = os.environ.get("MINIO_ROOT_PASSWORD", "minioadmin")
+    region = a.region or os.environ.get("MINIO_REGION", "us-east-1")
+    host, port = _parse_address(p, a.address)
+    return _serve_simple_layer(a.type, a.target, host, port, root_user, root_password, region, a)
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
@@ -415,10 +526,10 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "server":
         return serve(rest)
     if cmd == "gateway":
-        return _not_ported("`gateway`", "object/gateway.py")
+        return gateway(rest)
     if cmd == "update":
         return update_cmd(rest)
-    print(f"unknown command {cmd!r}; supported: server, update", file=sys.stderr)
+    print(f"unknown command {cmd!r}; supported: server, gateway, update", file=sys.stderr)
     return 2
 
 

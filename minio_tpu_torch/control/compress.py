@@ -11,8 +11,8 @@ Codec: snappy block format through the port's native host library
 JAX package writes whenever its own native library loads. The host library
 builds at first use and raises when it cannot: no zlib writer stands in for
 it. Reads accept both formats, so objects either package wrote, with either
-codec, decompress here; a pure-Python snappy decoder (the JAX package's copy
-lives with its parquet reader) is kept as an independent reader for tests.
+codec, decompress here; the parquet reader's pure-Python snappy decoder
+(s3select/parquet.py) is kept here as an independent reader for tests.
 The S3 front compresses when its config's compression subsystem is on
 (control/config.py, admin /config). Deliberately NOT a device workload, as
 in the JAX package.
@@ -67,51 +67,11 @@ def is_compressed(meta: dict[str, str]) -> bool:
 
 
 def snappy_decompress(data: bytes) -> bytes:
-    """Snappy block format decoder (the JAX package's
-    s3select/parquet.py snappy_decompress); ValueError on corrupt input."""
-    i = 0
-    # Preamble: uncompressed length varint.
-    n = shift = 0
-    while True:
-        if i >= len(data):
-            raise ValueError("snappy: truncated preamble")
-        b = data[i]
-        i += 1
-        n |= (b & 0x7F) << shift
-        shift += 7
-        if not b & 0x80:
-            break
-    out = bytearray()
-    while i < len(data):
-        tag = data[i]
-        i += 1
-        kind = tag & 3
-        if kind == 0:  # literal
-            length = (tag >> 2) + 1
-            if length > 60:
-                extra = length - 60
-                length = int.from_bytes(data[i : i + extra], "little") + 1
-                i += extra
-            out += data[i : i + length]
-            i += length
-        else:
-            if kind == 1:  # copy, 1-byte offset
-                length = ((tag >> 2) & 0x7) + 4
-                offset = ((tag >> 5) << 8) | data[i]
-                i += 1
-            elif kind == 2:  # copy, 2-byte offset
-                length = (tag >> 2) + 1
-                offset = int.from_bytes(data[i : i + 2], "little")
-                i += 2
-            else:  # copy, 4-byte offset
-                length = (tag >> 2) + 1
-                offset = int.from_bytes(data[i : i + 4], "little")
-                i += 4
-            if offset == 0 or offset > len(out):
-                raise ValueError("snappy: bad copy offset")
-            start = len(out) - offset
-            for k in range(length):  # may overlap: byte-by-byte
-                out.append(out[start + k])
-    if len(out) != n:
-        raise ValueError(f"snappy: length mismatch {len(out)} != {n}")
-    return bytes(out)
+    """The parquet reader's pure-Python snappy decoder (s3select/parquet.py);
+    ValueError on corrupt input."""
+    from ..s3select import parquet
+
+    try:
+        return parquet.snappy_decompress(data)
+    except parquet.ParquetError as e:
+        raise ValueError(str(e)) from e

@@ -5,8 +5,10 @@ drives with EC:1, answers signed S3 and admin requests, writes four
 format.json files, exits 0 on SIGTERM, and comes back after a restart with
 its data and a user added over admin. On ``cuda`` (the default) without a
 card the boot fails: FATAL with the probe's error, a non-zero exit, and no
-PUT answered 200 on the way. The commands and modes whose modules are not
-ported exit 2 naming the module.
+PUT answered 200 on the way. One path with no erasure format serves the FS
+backend, and `gateway nas` the same layer over a mount: each answers a
+script of signed S3 and admin requests as the JAX CLI does, starts no probe
+and builds no codec (so it comes online on cuda without a card).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import http.client
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -220,20 +223,104 @@ def test_cuda_without_a_card_fails_the_boot_and_serves_no_put(tmp_path):
     assert not any('"msg": "online"' in ln for ln in srv.lines)
 
 
+def _simple_script(port: int) -> dict:
+    """Signed S3 and admin requests to a FS-backed front: {step: (status,
+    the body with its random fields replaced by their shape)}."""
+    csv = b"id,status,bytes\n" + b"".join(b"%d,%d,%d\n" % (i, 200 + 100 * (i % 4), i * 7) for i in range(400))
+    select = (b"<SelectObjectContentRequest><Expression>SELECT count(*), sum(cast(s.bytes as int)) FROM S3Object s "
+              b"WHERE s.status = '500'</Expression><ExpressionType>SQL</ExpressionType><InputSerialization><CSV>"
+              b"<FileHeaderInfo>USE</FileHeaderInfo></CSV></InputSerialization><OutputSerialization><CSV/>"
+              b"</OutputSerialization></SelectObjectContentRequest>")
+    steps = [
+        ("make-bucket", "PUT", "/fsbkt", b""),
+        ("put", "PUT", "/fsbkt/dir/obj.bin", BODY),
+        ("put-csv", "PUT", "/fsbkt/log.csv", csv),
+        ("get", "GET", "/fsbkt/dir/obj.bin", b""),
+        ("head", "HEAD", "/fsbkt/dir/obj.bin", b""),
+        ("list-v2", "GET", "/fsbkt?list-type=2", b""),
+        ("list-delimiter", "GET", "/fsbkt?delimiter=%2F", b""),
+        ("select", "POST", "/fsbkt/log.csv?select=&select-type=2", select),
+        ("get-missing", "GET", "/fsbkt/nope", b""),
+        ("delete", "DELETE", "/fsbkt/dir/obj.bin", b""),
+        ("list-after-delete", "GET", "/fsbkt?list-type=2", b""),
+        ("admin-user-add", "POST", "/mtpu/admin/v1/users",
+         {"accessKey": USER[0], "secretKey": USER[1], "policies": ["readwrite"]}),
+        ("admin-users", "GET", "/mtpu/admin/v1/users", b""),
+        ("admin-datausage", "GET", "/mtpu/admin/v1/datausage", b""),
+        ("admin-config", "GET", "/mtpu/admin/v1/config", b""),
+        ("admin-heal", "POST", "/mtpu/admin/v1/heal?bucket=fsbkt", b""),
+        ("admin-pools", "GET", "/mtpu/admin/v1/pools/status", b""),
+    ]
+    out = {}
+    for name, method, target, body in steps:
+        path, _, qs = target.partition("?")
+        query = [tuple(kv.split("=", 1)) for kv in qs.split("&")] if qs else []
+        query = [(k, v.replace("%2F", "/")) for k, v in query]
+        payload = json.dumps(body).encode() if isinstance(body, dict) else body
+        headers = sign_request(Credentials(*ROOT), method, path, query, {"host": f"127.0.0.1:{port}"}, payload)
+        headers.pop("host", None)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request(method, target, body=payload, headers=headers)
+            r = conn.getresponse()
+            data = r.read()
+        finally:
+            conn.close()
+        # Times, request ids and the like differ between two servers: their
+        # digits and hex letters become "x".
+        data = re.sub(rb"<(LastModified|RequestId|HostId|CreationDate)>[^<]*<",
+                      lambda m: b"<%s>x<" % m.group(1), data)
+        if name.startswith("admin-datausage"):
+            data = re.sub(rb'"lastUpdate": ?[0-9.e+]+', b'"lastUpdate": x', data)
+        out[name] = (r.status, data if name != "get" else hashlib.sha256(data).hexdigest())
+    return out
+
+
 @pytest.mark.parametrize(
-    "argv,env,module",
-    [
-        (["gateway", "nas", "/tmp/x"], {}, "object/gateway.py"),
-        (["server", "--device", "cpu", "{root}/one"], {}, "object/fs.py"),
-    ],
-    ids=["gateway", "fs-backend"],
+    "argv,mode",
+    [(["server", "{root}/one"], "fs"), (["gateway", "nas", "{root}/nas"], "gateway-nas")],
+    ids=["fs-backend", "gateway-nas"],
 )
-def test_unported_commands_exit_2_naming_the_module(tmp_path, monkeypatch, capsys, argv, env, module):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    argv = [a.format(root=tmp_path) for a in argv]
-    assert cli.main(argv) == 2
-    assert module in capsys.readouterr().err
+def test_one_path_and_gateway_nas_serve_s3_like_the_jax_cli(tmp_path, argv, mode):
+    """The port's CLI (its default device, cuda, on a host with or without
+    a card) and the JAX CLI, each over its own directory: the same answers
+    to the same script, an online line naming the mode, no probe, and
+    exit 0 on SIGTERM."""
+    answers, online, stderr = {}, {}, {}
+    for pkg in ("minio_tpu", "minio_tpu_torch"):
+        port = _free_port()
+        args = [sys.executable, "-m", pkg, argv[0], "--address", f"127.0.0.1:{port}", "--json",
+                *(a.format(root=tmp_path / pkg) for a in argv[1:])]
+        env = {**os.environ, "PYTHONPATH": str(REPO), "MINIO_ROOT_USER": ROOT[0], "MINIO_ROOT_PASSWORD": ROOT[1],
+               "JAX_PLATFORMS": "cpu"}
+        env.pop("MINIO_TPU_CODEC", None)
+        proc = subprocess.Popen(args, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.monotonic()
+            lines = []
+            while not any('"msg": "online"' in ln for ln in lines):
+                line = proc.stdout.readline()
+                assert line or proc.poll() is None, (lines, proc.stderr.read())
+                lines.append(line)
+                assert time.monotonic() - t0 < 120, lines
+            online[pkg] = next(json.loads(ln) for ln in lines if '"msg": "online"' in ln)
+            answers[pkg] = _simple_script(port)
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(30)
+            stderr[pkg] = proc.stderr.read()
+        assert rc == 0, stderr[pkg]
+    assert online["minio_tpu_torch"]["mode"] == online["minio_tpu"]["mode"] == mode
+    assert not {"codec", "probe", "device"} & set(online["minio_tpu_torch"])
+    assert "[probe]" not in stderr["minio_tpu_torch"]
+    assert sorted(answers["minio_tpu_torch"]) == sorted(answers["minio_tpu"])
+    for step, want in answers["minio_tpu"].items():
+        assert answers["minio_tpu_torch"][step] == want, step
+    assert answers["minio_tpu_torch"]["select"][0] == 200 and answers["minio_tpu_torch"]["get"][0] == 200
+    root = tmp_path / "minio_tpu_torch" / ("one" if mode == "fs" else "nas")
+    assert (root / ".minio_tpu.sys" / "format-fs.json").is_file()
+    assert not (root / ".minio_tpu.sys" / "format.json").exists()
 
 
 def test_two_processes_form_a_cluster(tmp_path):

@@ -565,6 +565,19 @@ def test_import_checks_cover_replication_and_identity():
         assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
 
 
+def test_import_checks_cover_select_fs_and_gateways():
+    mods = _port_modules()
+    for m in (
+        "s3select", "s3select.value", "s3select.records", "s3select.sql", "s3select.eval", "s3select.readers",
+        "s3select.parquet", "s3select.eventstream", "s3select.select", "object.fs", "object.gateway",
+    ):
+        assert f"minio_tpu_torch.{m}" in mods
+        rel = m.replace(".", "/") + ("/__init__.py" if m == "s3select" else ".py")
+        assert (PORT / rel) in sorted(PORT.rglob("*.py"))
+    assert sorted(p.name for p in (PORT / "s3select").glob("*.py")) == sorted(
+        p.name for p in (REPO / "minio_tpu" / "s3select").glob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"

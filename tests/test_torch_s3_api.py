@@ -15,10 +15,8 @@ must be equal; XML bodies are parsed and compared element by element, with
 the fields that are random in each server (request ids, version ids,
 upload ids, timestamps) compared by position and shape, never by value.
 Then every object's part files, inline data and the erasure fields of its
-xl.meta must be equal across the two drive trees. The stated exceptions:
-SelectObjectContent, whose module the port does not have yet, answers
-NotImplemented in the port (asserted here; the JAX server's answer is
-recorded as a test property), and the SSE objects, whose ciphertext is random in each package
+xl.meta must be equal across the two drive trees. The stated exception:
+the SSE objects, whose ciphertext is random in each package
 (their plaintext, etag and logical size are compared, their stored bytes
 and digests are not).
 
@@ -177,14 +175,11 @@ class Client:
 
 
 STEPS: list[tuple[str, object]] = []
-NOT_PORTED: list[str] = []
 
 
-def step(name: str, not_ported: bool = False):
+def step(name: str):
     def deco(fn):
         STEPS.append((name, fn))
-        if not_ported:
-            NOT_PORTED.append(name)
         return fn
     return deco
 
@@ -607,8 +602,8 @@ def _sts_assume_role(c: Client) -> Resp:
     return Resp(r.status, r.headers, body)
 
 
-# routes whose modules the port does not have yet: the port answers 501
-step("select-object-content", not_ported=True)(lambda c: c.send(
+# SelectObjectContent over random bytes: the same event stream from both
+step("select-object-content")(lambda c: c.send(
     "POST", "/bkt/size/tiny", query=[("select", ""), ("select-type", "2")],
     body=b"<SelectObjectContentRequest><Expression>SELECT * FROM S3Object</Expression>"
     b"<ExpressionType>SQL</ExpressionType><InputSerialization><CSV/></InputSerialization>"
@@ -617,6 +612,18 @@ step("select-object-content", not_ported=True)(lambda c: c.send(
 # whose compression subsystem is on: both fronts compress the PUT)
 step("compression-config-put")(lambda c: c.send(
     "PUT", "/cbkt/notes.txt", body=b"compress me " * 200))
+# Select reads the logical bytes of an encrypted and of a compressed object
+# (the Stats frame counts them; cbkt's drive files are not compared)
+COUNT_SELECT = (b"<SelectObjectContentRequest><Expression>SELECT count(*) FROM S3Object</Expression>"
+                b"<ExpressionType>SQL</ExpressionType><InputSerialization><CSV/></InputSerialization>"
+                b"<OutputSerialization><CSV/></OutputSerialization></SelectObjectContentRequest>")
+SELECT_CSV = b"".join(b"%d,%d\n" % (i, i * i) for i in range(1000))
+step("put-sse-s3-csv")(lambda c: c.send(
+    "PUT", "/cbkt/log.csv", body=SELECT_CSV, headers={"x-amz-server-side-encryption": "AES256"}))
+step("select-sse-s3")(lambda c: c.send(
+    "POST", "/cbkt/log.csv", query=[("select", ""), ("select-type", "2")], body=COUNT_SELECT))
+step("select-compressed")(lambda c: c.send(
+    "POST", "/cbkt/notes.txt", query=[("select", ""), ("select-type", "2")], body=COUNT_SELECT))
 
 # the last listings and the bucket list
 step("list-buckets")(lambda c: c.send("GET", "/"))
@@ -723,17 +730,9 @@ def _assert_same_response(j: Resp, p: Resp) -> None:
         assert p.body == j.body
 
 
-@pytest.mark.parametrize("name", [n for n in STEP_NAMES if n not in NOT_PORTED])
+@pytest.mark.parametrize("name", STEP_NAMES)
 def test_response_equal(run, name):
     _assert_same_response(run.resp["jax"][name], run.resp["port"][name])
-
-
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_not_ported_route_answers_501(run, name, record_property):
-    p, j = run.resp["port"][name], run.resp["jax"][name]
-    record_property("jax_status", j.status)
-    assert p.status == 501
-    assert ET.fromstring(p.body).findtext("Code") == "NotImplemented"
 
 
 # Object bodies against the seeded bytes (the equality above already holds

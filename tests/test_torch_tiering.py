@@ -43,6 +43,7 @@ from minio_tpu_torch.object.erasure import META_BUCKET
 from minio_tpu_torch.object.pools import ServerPools
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.parallel.batching import BatchingDeviceCodec
+from minio_tpu_torch.s3select import decode_messages
 from minio_tpu_torch.storage import format as fmt
 from minio_tpu_torch.storage.local import LocalDrive
 from minio_tpu_torch.utils import errors
@@ -242,6 +243,31 @@ class TestTiering:
         assert c.get_object("arch", "cp-tiered-dst.bin").content == body
         assert not tiering_mod.is_transitioned(node.pools.get_object_info("arch", "cp-tiered-dst.bin").internal)
         assert tiering_mod.is_transitioned(node.pools.get_object_info("arch", "cp-tiered.bin").internal)
+
+    def test_select_on_transitioned_object(self, srv):
+        """S3 Select over a transitioned object recalls it from the tier (the
+        shared logical-read path) instead of 5xx-ing on freed shards."""
+        node, c = srv["node"], srv["client"]
+        assert c.make_bucket("arch").status_code in (200, 409)
+        csv = b"a,b\n" + b"".join(b"%d,%d\n" % (i, i) for i in range(50000))
+        c.put_object("arch", "sel.csv", csv)
+        node.tiering.transition(node.pools, "arch", "sel.csv", "", "COLD")
+        assert _local_part_files(node, "arch", "sel.csv") == []
+        sel = c.request(
+            "POST", "/arch/sel.csv", query=[("select", ""), ("select-type", "2")],
+            body=b"""<?xml version="1.0"?><SelectObjectContentRequest>
+              <Expression>SELECT count(*) FROM S3Object</Expression>
+              <ExpressionType>SQL</ExpressionType>
+              <InputSerialization><CSV><FileHeaderInfo>USE</FileHeaderInfo></CSV></InputSerialization>
+              <OutputSerialization><CSV/></OutputSerialization>
+            </SelectObjectContentRequest>""",
+        )
+        assert sel.status_code == 200, sel.text
+        recs = b"".join(
+            m["payload"] for m in decode_messages(sel.content)
+            if m["headers"].get(":event-type") == "Records"
+        )
+        assert recs.strip() == b"50000", recs
 
     def test_tier_stats_and_creds_routes(self, srv):
         c = srv["client"]
