@@ -477,8 +477,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Printed: each Select's seconds, MB/s and launches, the phase's seconds,
    beside the card's name and power limit.
 
+16. The mesh path (parallel/mesh.py; ErasurePipeline's and
+   BatchingDeviceCodec's mesh handling) over virtual meshes whose entries
+   all map to cuda:0 (the host has one card; a mesh over real cards is not
+   reached):
+   - 16a: the encode step at (dp, tp, sp) = (8,1,1), (4,2,1), (2,2,2) and
+     (1,2,4) over 8 entries, 12+4 with 87,382 B shards (87,384 for sp = 4,
+     which 87,382 does not tile) and B = 2*dp blocks from a numpy seed:
+     shards and digests equal byte for byte to the single-device pipeline's
+     on cuda:0 (phase 2 holds it against the plain versions), and each
+     kernel launched dp*tp*sp = 8 times a step (paths mesh_encode_DxTxS).
+     Printed: the step's ms beside the single-device step's (CUDA events; a
+     virtual mesh serialises on one card, so this is a finding, not a
+     gate), and each kernel at the entries' shapes (RS [2, 12, S/sp] into 4
+     rows, the hash on 2*16/(sp*tp) rows) beside its bytes bound; they go
+     into the kernels line as `mesh_shapes`.
+   - 16b: torch.cuda.device_count(), MTPU_MESH_SHAPE and codec_mesh() (None
+     with one card); the script's codec reads mesh_devices 1, chip_blocks [].
+   - 16c: BatchingDeviceCodec(mesh=(4,1,1) over cuda:0) under a 16-drive
+     12+4 set: 16 objects of 4 MiB PUT from 16 threads (mesh_codec_put), a
+     GET of each byte-exact (mesh_codec_get) and again with drives 1, 6, 11
+     and 12 offline (mesh_codec_degraded_get); every part file equal to
+     those the script's codec writes for the same payloads into a second
+     set; mesh_devices 4, sum(chip_blocks) = blocks_encoded, and each
+     group's count equal to the JAX package's formula over the batches the
+     codec ran; no host codec, no plain version.
+
 The line before the last is a JSON object describing each kernel, with its
-launches by path (phases 7, 8a, 11, 12, 13, 14 and 15 included); the last
+launches by path (phases 7, 8a and 11-16 included); the last
 line is {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 
@@ -647,6 +673,25 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int16) - b.to(torch.int16)).abs().max().item()) if a.numel() else 0
 
 
+def rs_bound(b: int, r: int, k: int = K, s: int = S_FULL) -> tuple[float, str]:
+    """The RS kernel's least time in ms at [b, k, s] -> r rows, and what sets it."""
+    nbytes = b * (k + r) * s
+    ops = 2 * b * s * (k * 8) * (r * 8)  # the bit-matmul's MACs x 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def hh_bound(n: int, length: int = S_FULL) -> tuple[float, str]:
+    """The hash kernel's least time in ms for n rows of `length` bytes."""
+    nbytes = n * length + n * 32
+    # Per 32-byte packet and lane: 3 adds, 2 multiplies, 2 masks, 2
+    # shifts, 2 xors, plus ~24 zipper shift/mask/or ops per lane pair:
+    # ~60 ops.
+    ops = n * (length // 32 + 11) * 4 * 60
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_ALU_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_gpu_and_build():
     from minio_tpu_torch.ops import cuda_build
 
@@ -722,12 +767,6 @@ def phase_kernels(dev: torch.device) -> dict:
         f"{K_RRS}+2 encode at S in (1, 17, {S_RRS}) and its fused layout at B = 16; the small path's "
         f"padded batches at S in {SMALL_PADDED}")
 
-    def rs_bound(b: int, r: int, k: int = K, s: int = S_FULL) -> tuple[float, str]:
-        nbytes = b * (k + r) * s
-        ops = 2 * b * s * (k * 8) * (r * 8)  # the bit-matmul's MACs x 2
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
     def rs_cold_ms(b: int, r: int, layout: str, k: int = K, s: int = S_FULL) -> float:
         # Rotate over copies that together exceed the 50 MB L2, so each
         # launch reads rows that are not in the cache.
@@ -753,6 +792,11 @@ def phase_kernels(dev: torch.device) -> dict:
         del bits
         return ms
 
+    def rs_plain_at(b: int, r: int, layout: str, k: int = K, s: int = S_FULL) -> float:
+        coeffs = recs[r] if layout == "reconstruct" else parity if k == K else parity_rrs
+        xs = rand((b, k, s))
+        return cuda_time_ms(lambda: rs_cuda.plain(xs, coeffs), 2)
+
     # The shapes of the paths: encode (contiguous, the fused view, 14+2, the
     # small path's padded batches), heal's 4-row window, and the degraded
     # GET's reconstructs of phase 5 (B = 1 and 4 blocks, R = 1 and 4 rows,
@@ -767,10 +811,11 @@ def phase_kernels(dev: torch.device) -> dict:
         ms = rs_cold_ms(b, r, layout, k, s)
         bound_ms, bound_by = rs_bound(b, r, k, s)
         lib_ms = rs_lib_ms(b, r, layout, k, s)
-        rs_shapes.append({"shape": [b, k, s], "rows": r, "layout": layout, "ms": ms,
+        plain_ms = rs_plain_at(b, r, layout, k, s)
+        rs_shapes.append({"shape": [b, k, s], "rows": r, "layout": layout, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         log(f"kernel rs_gf_apply: [{b},{k},{s}] -> {r} rows, {layout}: {ms:.4f} ms "
-            f"(bound {bound_ms:.4f} ms, {bound_by}; torch fp16 bit-matmul {lib_ms:.4f} ms)")
+            f"(bound {bound_ms:.4f} ms, {bound_by}; torch fp16 bit-matmul {lib_ms:.4f} ms; plain {plain_ms:.3f} ms)")
     rs_ms = rs_shapes[0]["ms"]
     rs_plain_ms = cuda_time_ms(lambda: rs_cuda.plain(x, parity), 2)
     # Library yardstick: one torch matmul doing the same GF(2) product on
@@ -843,16 +888,8 @@ def phase_kernels(dev: torch.device) -> dict:
     heal = verify.view(12, 64, S_FULL)
     turn = itertools.cycle(range(12))
     hh_ms_n64 = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(heal[next(turn)]), 24)
+    _, hh_plain_ms_n64 = plain_timed(heal[0])
     del verify, heal
-
-    def hh_bound(n: int, length: int = S_FULL) -> tuple[float, str]:
-        nbytes = n * length + n * 32
-        # Per 32-byte packet and lane: 3 adds, 2 multiplies, 2 masks, 2
-        # shifts, 2 xors, plus ~24 zipper shift/mask/or ops per lane pair:
-        # ~60 ops.
-        ops = n * (length // 32 + 11) * 4 * 60
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_ALU_OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     hh_bound_ms, hh_bound_by = hh_bound(1024)
     hh_bound_ms_n16, _ = hh_bound(16)
@@ -865,13 +902,15 @@ def phase_kernels(dev: torch.device) -> dict:
         rows = rand((copies, n, length))
         turn = itertools.cycle(range(copies))
         ms = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(rows[next(turn)]), 2 * copies)
+        _, plain_ms = plain_timed(rows[0])
         bound_ms, bound_by = hh_bound(n, length)
-        hh_shapes.append({"shape": [n, length], "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"kernel hh256: [{n},{length}] {ms:.4f} ms (bound {bound_ms:.6f} ms, {bound_by})")
+        hh_shapes.append({"shape": [n, length], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by})
+        log(f"kernel hh256: [{n},{length}] {ms:.4f} ms (bound {bound_ms:.6f} ms, {bound_by}; plain {plain_ms:.1f} ms)")
         del rows
     log(f"kernel hh256 ok: [1024,{S_FULL}] {hh_ms:.4f} ms (plain {hh_plain_ms:.1f} ms, bound {hh_bound_ms:.4f} ms); "
         f"[16,{S_FULL}] {hh_ms_n16:.4f} ms (plain {hh_plain_ms_n16:.1f} ms, bound {hh_bound_ms_n16:.6f} ms); "
-        f"[64,{S_FULL}] {hh_ms_n64:.4f} ms (bound {hh_bound_ms_n64:.6f} ms)")
+        f"[64,{S_FULL}] {hh_ms_n64:.4f} ms (plain {hh_plain_ms_n64:.1f} ms, bound {hh_bound_ms_n64:.6f} ms)")
     return {
         "rs_gf_apply": {
             "name": "rs_gf_apply", "route": "cuda", "source": "minio_tpu_torch/csrc/rs_gf.cu",
@@ -886,7 +925,8 @@ def phase_kernels(dev: torch.device) -> dict:
             "ms": hh_ms, "plain_ms": hh_plain_ms, "bound_ms": hh_bound_ms,
             "bound_by": hh_bound_by, "library_ms": None, "shape": [1024, S_FULL],
             "ms_n16": hh_ms_n16, "plain_ms_n16": hh_plain_ms_n16, "bound_ms_n16": hh_bound_ms_n16,
-            "ms_n64": hh_ms_n64, "bound_ms_n64": hh_bound_ms_n64, "shapes": hh_shapes,
+            "ms_n64": hh_ms_n64, "plain_ms_n64": hh_plain_ms_n64, "bound_ms_n64": hh_bound_ms_n64,
+            "shapes": hh_shapes,
         },
     }
 
@@ -5855,6 +5895,184 @@ def phase_select(smi: str, root: str, codec, tally: Tally, device: str = "cuda",
     return paths
 
 
+MESH_SHAPES = ((8, 1, 1), (4, 2, 1), (2, 2, 2), (1, 2, 4))  # the JAX package's mesh tests' shapes
+MESH_OFFLINE = (1, 6, 11, 12)  # the drives 16c takes offline for its degraded GET
+
+
+def phase_mesh(smi: str, root: str, codec, tally: Tally, kernels: dict, device: str = "cuda",
+               n_objects: int = 16, object_mib: int = 4, threads: int = 16) -> dict:
+    """Phase 16: the mesh path (parallel/mesh.py, the mesh branch of
+    ErasurePipeline and BatchingDeviceCodec's mesh routing) on one card,
+    over virtual meshes whose entries all map to cuda:0. 16a: the encode
+    step at each of MESH_SHAPES over 8 entries, at 12+4 with 87,382 B shards
+    (87,384 for sp = 4) and B = 2*dp blocks, equal byte for byte to the
+    single-device pipeline, each kernel launched dp*tp*sp times a step; the
+    step's ms beside the single-device step's, and each kernel's ms at the
+    mesh's per-entry shapes beside its bytes bound. 16b: codec_mesh() on this
+    host, and the script's codec unmeshed. 16c: a codec over a (4,1,1)
+    virtual mesh under a 16-drive 12+4 set: n_objects of object_mib from
+    `threads` threads, GET and degraded GET byte-exact, part files equal to
+    those the script's codec writes, chip_blocks by the formula. Returns the
+    kernel counts by path."""
+    from minio_tpu_torch.models.pipeline import ErasurePipeline, Geometry
+    from minio_tpu_torch.ops import highwayhash_cuda, highwayhash_torch, rs_cuda, rs_matrix
+    from minio_tpu_torch.parallel import mesh as mesh_lib
+    from minio_tpu_torch.parallel.batching import BatchingDeviceCodec, _bucket
+    from minio_tpu_torch.tools.rs_probe import graph_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    paths: dict = {}
+    # -- 16a: the encode step over 8 entries of one card ---------------------------------------------------
+    parity = rs_matrix.parity_matrix(K, M)
+    rs_rows, hh_rows = {}, {}
+    for shape in MESH_SHAPES:
+        dp, tp, sp = shape
+        shard = -(-S_FULL // sp) * sp
+        geom = Geometry(K, M, block_size=K * shard)
+        pipe = ErasurePipeline(geom, device=dev, mesh=mesh_lib.make_mesh(shape=shape, devices=[dev] * 8))
+        single = ErasurePipeline(geom, device=dev)
+        data = np.random.default_rng(160 + dp).integers(0, 256, (2 * dp, K, shard), dtype=np.uint8)
+        x = torch.from_numpy(data).to(dev)
+        want_shards, want_digests = single.encode(x)
+        name = f"mesh_encode_{dp}x{tp}x{sp}"
+        tally.reset()
+        shards, digests = pipe.encode(x)
+        torch.cuda.synchronize()
+        paths[name] = tally.read(name)
+        if paths[name]["launches"] != {"rs_gf_apply": 8, "hh256": 8}:
+            raise AssertionError(f"16a {name}: launches {paths[name]['launches']}, not dp*tp*sp = 8 of each")
+        if not (torch.equal(shards, want_shards) and torch.equal(digests, want_digests)):
+            raise AssertionError(f"16a {name}: shards or digests differ from the single-device pipeline")
+        step_ms = cuda_time_ms(lambda: pipe.encode(x), 10)
+        single_ms = cuda_time_ms(lambda: single.encode(x), 10)
+        # Each entry's kernels at their own shapes, held against their plain
+        # versions (exact) and timed beside them: RS on [2, 12, S/sp] into 4
+        # parity rows of an all-shards block (beside the fp16 bit-matmul
+        # yardstick), the hash on 2 * t_loc rows.
+        s_loc, n_rows = shard // sp, 2 * (K + M) // (sp * tp)
+        if s_loc not in rs_rows:
+            block = torch.from_numpy(data[:2, :, :s_loc].copy()).to(dev)
+            allb = torch.empty((2, K + M, s_loc), dtype=torch.uint8, device=dev)
+            allb[:, :K] = block
+            rs_cuda.apply(allb[:, :K], parity, out=allb[:, K:])
+            err = max_abs_err(allb[:, K:], rs_cuda.plain(block, parity))
+            ms = graph_ms([lambda: rs_cuda.apply(allb[:, :K], parity, out=allb[:, K:])], 50)
+            plain_ms = cuda_time_ms(lambda: rs_cuda.plain(block, parity), 2)
+            bits = torch.randint(0, 2, (2 * s_loc, K * 8), device=dev, dtype=torch.float16)
+            w = torch.from_numpy(rs_matrix.bit_expand(parity).astype(np.float16)).to(dev)
+            lib_ms = cuda_time_ms(lambda: bits @ w, 20)
+            bound_ms, bound_by = rs_bound(2, M, K, s_loc)
+            rs_rows[s_loc] = {"shape": [2, K, s_loc], "rows": M, "layout": "mesh entry, encode view", "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "max_abs_err": err, "mesh": list(shape)}
+        if (n_rows, shard) not in hh_rows:
+            rows = want_shards.reshape(-1, shard)[:n_rows].contiguous()
+            t0 = time.perf_counter()
+            want = highwayhash_torch.hash256_batch(rows)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max_abs_err(highwayhash_cuda.hash256_batch(rows), want)
+            # ~0.17 ms a launch (the packet chain), well above its host cost.
+            ms = cuda_time_ms(lambda: highwayhash_cuda.hash256_batch(rows), 50)
+            bound_ms, bound_by = hh_bound(n_rows, shard)
+            hh_rows[(n_rows, shard)] = {"shape": [n_rows, shard], "ms": ms, "plain_ms": plain_ms,
+                                        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                                        "max_abs_err": err, "mesh": list(shape)}
+        if rs_rows[s_loc]["max_abs_err"] or hh_rows[(n_rows, shard)]["max_abs_err"]:
+            raise AssertionError(f"16a {name}: a kernel disagrees with its plain version at the entries' shapes")
+        log(f"16a {name}: 12+4, {2 * dp} blocks of {shard} B shards over 8 entries of {dev}; shards and digests "
+            f"equal to the single-device pipeline's; 8 launches of each kernel; step {step_ms:.3f} ms "
+            f"(single-device step {single_ms:.3f} ms); per entry rs_gf_apply [2,{K},{s_loc}] "
+            f"{rs_rows[s_loc]['ms']:.4f} ms (bound {rs_rows[s_loc]['bound_ms']:.5f}, plain "
+            f"{rs_rows[s_loc]['plain_ms']:.3f}, fp16 bit-matmul {rs_rows[s_loc]['library_ms']:.4f}), hh256 "
+            f"[{n_rows},{shard}] {hh_rows[(n_rows, shard)]['ms']:.4f} ms (bound "
+            f"{hh_rows[(n_rows, shard)]['bound_ms']:.6f}, plain {hh_rows[(n_rows, shard)]['plain_ms']:.1f}); both "
+            f"equal to their plain versions there [{smi}]")
+    kernels["rs_gf_apply"]["mesh_shapes"] = list(rs_rows.values())
+    kernels["hh256"]["mesh_shapes"] = list(hh_rows.values())
+    # -- 16b: the codec mesh of this host ------------------------------------------------------------------
+    cards = torch.cuda.device_count()
+    resolved = mesh_lib.codec_mesh()
+    st = codec.stats()
+    log(f"16b: {cards} CUDA device(s), MTPU_MESH_SHAPE={os.environ.get('MTPU_MESH_SHAPE', '')!r}, "
+        f"codec_mesh() -> {resolved}; the script's codec: mesh {codec.mesh}, mesh_devices {st['mesh_devices']}, "
+        f"chip_blocks {st['chip_blocks']}")
+    if cards == 1 and (resolved is not None or codec.mesh is not None or st["mesh_devices"] != 1
+                       or st["chip_blocks"] != []):
+        raise AssertionError("16b: one card, yet the script's codec fans over a mesh")
+    if cards == 1:
+        log("16b: a mesh over two or more real cards is not reached on this host (one card)")
+    # -- 16c: a codec over a (4,1,1) virtual mesh under a 12+4 set -----------------------------------------
+    base = os.path.join(root, "mesh")
+    mcodec = BatchingDeviceCodec(max_batch=64, device=dev, mesh=mesh_lib.make_mesh(shape=(4, 1, 1), devices=[dev] * 4))
+    sizes: list = []
+    dispatch = mcodec._dispatch_batch
+
+    def recording(pipe, streams, k, m, batch):
+        sizes.append(len(batch))
+        return dispatch(pipe, streams, k, m, batch)
+
+    mcodec._dispatch_batch = recording
+    try:
+        eo, drives = _make_set(os.path.join(base, "mesh"), mcodec)
+        eo_ref, drives_ref = _make_set(os.path.join(base, "main"), codec)
+        rng = np.random.default_rng(161)
+        payloads = {f"mesh-{i:02d}": rng.integers(0, 256, object_mib * MiB, dtype=np.uint8).tobytes()
+                    for i in range(n_objects)}
+        names = list(payloads)
+        tally.reset()
+        t0 = time.perf_counter()
+        _in_threads(lambda n: eo.put_object("bench", n, payloads[n]), names, threads)
+        put_s = time.perf_counter() - t0
+        paths["mesh_codec_put"] = tally.read("mesh_codec_put")
+        _no_host_fallback(mcodec, "mesh_codec_put")
+        tally.reset()
+        t0 = time.perf_counter()
+        if _in_threads(lambda n: eo.get_object("bench", n)[1], names, threads) != [payloads[n] for n in names]:
+            raise AssertionError("16c GET: bytes differ")
+        get_s = time.perf_counter() - t0
+        paths["mesh_codec_get"] = tally.read("mesh_codec_get", ("hh256",))
+        offline = {i: eo.disks[i] for i in MESH_OFFLINE}
+        for i in MESH_OFFLINE:
+            eo.disks[i] = None
+        try:
+            tally.reset()
+            t0 = time.perf_counter()
+            if _in_threads(lambda n: eo.get_object("bench", n)[1], names, threads) != [payloads[n] for n in names]:
+                raise AssertionError("16c degraded GET: bytes differ")
+            dget_s = time.perf_counter() - t0
+            paths["mesh_codec_degraded_get"] = tally.read("mesh_codec_degraded_get")
+        finally:
+            for i, d in offline.items():
+                eo.disks[i] = d
+        _no_host_fallback(mcodec, "mesh_codec_degraded_get")
+        _in_threads(lambda n: eo_ref.put_object("bench", n, payloads[n]), names, threads)
+        for n in names:
+            if _part_files(drives, n) != _part_files(drives_ref, n):
+                raise AssertionError(f"16c {n}: part files differ from the script's codec's")
+        st = mcodec.stats()
+        per_group = [0] * 4
+        for b_real in sizes:
+            per = -(-_bucket(b_real) // 4)
+            for g in range(4):
+                per_group[g] += min(max(b_real - g * per, 0), per)
+        if not (st["mesh_devices"] == 4 and sum(st["chip_blocks"]) == st["blocks_encoded"] == sum(sizes)
+                == n_objects * object_mib and st["chip_blocks"] == per_group and st["blocks_padded"] % 4 == 0):
+            raise AssertionError(f"16c: mesh counters {json.dumps(st)}; batches {sizes}, by the formula {per_group}")
+        gib = n_objects * object_mib / 1024
+        log(f"16c: {n_objects} x {object_mib} MiB through a (4,1,1) mesh codec from {threads} threads: PUT "
+            f"{gib / put_s:.3f} GiB/s, GET {gib / get_s:.3f} GiB/s, degraded GET (drives {list(MESH_OFFLINE)} "
+            f"offline) {gib / dget_s:.3f} GiB/s [{smi}]; part files (shard bytes and frame digests) equal to the "
+            f"script's codec's; batches {sizes} (b_pad {[-(-_bucket(b) // 4) * 4 for b in sizes]}), chip_blocks "
+            f"{st['chip_blocks']} by the formula, mesh_devices {st['mesh_devices']}")
+    finally:
+        mcodec.close()
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5916,6 +6134,8 @@ def main() -> int:
         log_phase_end("phase 14")
         paths.update(phase_select(smi, root, codec, tally))
         log_phase_end("phase 15")
+        paths.update(phase_mesh(smi, root, codec, tally, kernels))
+        log_phase_end("phase 16")
     finally:
         tally.uninstall()
         codec.close()

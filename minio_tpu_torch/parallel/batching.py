@@ -7,7 +7,11 @@ cmd/erasure-coding.go:63).
 
 Design (the JAX package's parallel/batching.py, on torch and CUDA):
   * Full 1 MiB blocks take the batched device path -- uniform [B, K, S]
-    shapes, one fused encode+hash step (models/pipeline.py).
+    shapes, one fused encode+hash step (models/pipeline.py). With more
+    than one card the step fans over the codec mesh (parallel/mesh.py
+    codec_mesh, MTPU_MESH_SHAPE): batches pad to a multiple of dp and fan
+    data-parallel over blocks; each grid entry's piece is copied straight
+    into its slice of the pinned host buffers.
   * Every shorter block coalesces on a second queue behind a bounded
     latency budget (MTPU_BATCH_WAIT_US): concurrent small-object PUTs share
     one device batch, padded on the shard-BYTE axis (GF math is per byte
@@ -47,6 +51,7 @@ from ..control.sanitizer import san_lock
 from ..models.pipeline import ErasurePipeline, Geometry, resolve_device
 from ..object.codec import BlockCodec, digests_by_length, reconstruct_groups, stack_rows
 from ..ops import highwayhash_cuda, rs_matrix
+from ..parallel import mesh as mesh_lib
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
@@ -124,12 +129,17 @@ class _PinnedPool:
 
 @dataclass
 class _Pending:
-    """One dispatched encode batch, resolved when its event completes."""
+    """One dispatched encode batch, resolved when its events complete.
+
+    Block i = g * b_loc + j of the batch lies in group g at slot j; the
+    shard rows are views [dp, b_loc, K+M, sp, S/sp] whose last two axes
+    read in order are the row, the digests [dp, b_loc, sp, tp, t_loc, 32]
+    (dp = sp = tp = 1 without a mesh)."""
 
     batch: list
-    shards: np.ndarray  # [b_pad, K+M, S] (pinned-buffer view on the card)
-    digests: np.ndarray  # [b_pad, K+M, 32]
-    event: "torch.cuda.Event | None"
+    shards: np.ndarray  # pinned-buffer views on the card
+    digests: np.ndarray
+    events: list  # one a mesh entry (one without a mesh); none on the CPU
     pinned: list
     k: int
     m: int
@@ -137,13 +147,16 @@ class _Pending:
     b_pad: int
     t0: float
     c0: float
+    mesh_dp: int | None  # the mesh's dp, None without a mesh
 
 
 class BatchingDeviceCodec(BlockCodec):
     """BlockCodec running full blocks through a batched device pipeline.
 
     ``device`` is "cuda" unless the caller asks for "cpu"; "cuda" without a
-    card raises."""
+    card raises. ``mesh`` is a parallel/mesh.py Mesh of ``device``'s type,
+    None, or "auto": codec_mesh() on cuda (None with one card), None on the
+    CPU."""
 
     def __init__(
         self,
@@ -151,11 +164,17 @@ class BatchingDeviceCodec(BlockCodec):
         max_batch: int = 64,
         batch_timeout_s: float = 0.0005,
         device="cuda",
+        mesh="auto",
     ):
         self.block_size = block_size
         self.max_batch = max_batch
         self.batch_timeout_s = batch_timeout_s
         self.device = resolve_device(device)
+        if mesh not in ("auto", None) and mesh.type != self.device.type:
+            raise ValueError(f"a {mesh.type} mesh under a codec on {self.device}")
+        # "auto" resolves at first worker creation (device enumeration
+        # stays off the constructor).
+        self.mesh = mesh
         self.small_wait_s = _small_wait_s()
         self._pinned = _PinnedPool() if self.device.type == "cuda" else None
         self._queues: dict[tuple, queue.Queue] = {}
@@ -185,7 +204,9 @@ class BatchingDeviceCodec(BlockCodec):
         # Batches whose completion overlapped the next batch's dispatch (the
         # worker's one-deep pending slot engaged).
         self.double_buffered_batches = 0
-        # One device; the keys stay for the JAX package's stats() shape.
+        # Multi-device fan-out accounting: chip_blocks[g] counts real
+        # (non-pad) blocks the dp-group g carried; with no mesh both stay
+        # trivial.
         self.mesh_devices = 1
         self.chip_blocks: list[int] = []
         # Wall time from dispatch to completion, per kernel class (seconds).
@@ -225,14 +246,47 @@ class BatchingDeviceCodec(BlockCodec):
         with self._lock:
             return self._pipeline_locked(k, m)
 
+    def _mesh_for(self, k: int, m: int):
+        """The codec mesh, or None when the geometry doesn't tile it.
+
+        Caller holds self._lock ("auto" resolution mutates self.mesh). The
+        mesh step needs (k+m) streams to divide the tp x sp grid and the
+        shard byte axis to divide sp; geometries that don't fit run the
+        single-device pipeline (the JAX package's routing rule)."""
+        if self.mesh == "auto":
+            self.mesh = mesh_lib.codec_mesh() if self.device.type == "cuda" else None
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        tp, sp = mesh.shape["tp"], mesh.shape["sp"]
+        geom = Geometry(k, m, self.block_size)
+        if geom.total % (tp * sp) or geom.shard_size % sp:
+            return None
+        return mesh
+
     def _pipeline_locked(self, k: int, m: int) -> ErasurePipeline:
         key = (k, m)
         pipe = self._pipelines.get(key)
         if pipe is None:
+            mesh = self._mesh_for(k, m)
             pipe = self._pipelines[key] = ErasurePipeline(
-                Geometry(k, m, self.block_size), device=self.device
+                Geometry(k, m, self.block_size), device=self.device, mesh=mesh
             )
+            if mesh is not None:
+                with self._stats_lock:
+                    self.mesh_devices = max(self.mesh_devices, mesh.size)
+                    dp = mesh.shape["dp"]
+                    if len(self.chip_blocks) < dp:
+                        self.chip_blocks.extend([0] * (dp - len(self.chip_blocks)))
         return pipe
+
+    def _step_streams(self, pipe: ErasurePipeline, stream) -> dict | None:
+        """A worker's stream on each card of its pipeline's mesh (its own
+        stream on the codec's device); None on the CPU."""
+        if stream is None:
+            return None
+        devices = pipe.mesh.distinct_devices() if pipe.mesh is not None else [self.device]
+        return {d: stream if d == self.device else torch.cuda.Stream(d) for d in devices}
 
     def _ensure_worker(self, k: int, m: int) -> queue.Queue:
         key = (k, m)
@@ -283,8 +337,9 @@ class BatchingDeviceCodec(BlockCodec):
         q = self._queues[key]
         pipe = self._pipelines[key]
         stream = self._stream()
+        streams = self._step_streams(pipe, stream)
         # One-deep pending slot: under sustained load batch i+1 is
-        # dispatched before the worker waits on batch i's event.
+        # dispatched before the worker waits on batch i's events.
         pending = None
         while not self._stop.is_set():
             try:
@@ -295,7 +350,7 @@ class BatchingDeviceCodec(BlockCodec):
                     pending = None
                 continue
             batch = self._collect(q, first, self.batch_timeout_s)
-            dispatched = self._dispatch_batch(pipe, stream, k, m, batch)
+            dispatched = self._dispatch_batch(pipe, streams, k, m, batch)
             if pending is not None:
                 self._resolve_batch(pending)
                 if dispatched is not None:
@@ -310,38 +365,51 @@ class BatchingDeviceCodec(BlockCodec):
         if pending is not None:
             self._resolve_batch(pending)
 
-    def _dispatch_batch(self, pipe: ErasurePipeline, stream, k: int, m: int, batch: list[_Request]):
+    def _dispatch_batch(self, pipe: ErasurePipeline, streams, k: int, m: int, batch: list[_Request]):
         """Stage + launch one encode batch; returns the pending record to
-        resolve later, or None if dispatch itself failed."""
+        resolve later, or None if dispatch itself failed.
+
+        The batch is staged per grid entry: entry (d, t, s) reads
+        host_in[d, s] and writes host_shards[d, s] (its tp = 0 replica) and
+        host_digests[d, s, t], each one contiguous block of a pinned buffer,
+        so every copy is one async transfer and nothing is gathered onto one
+        card first. Without a mesh the grid is the one entry (0, 0, 0)."""
         pinned: list = []
         try:
+            mesh = pipe.mesh
+            dp, tp, sp = (mesh.shape[a] for a in mesh_lib.AXES) if mesh is not None else (1, 1, 1)
             s = batch[0].shards.shape[1]
+            t = k + m
             b_real = len(batch)
-            b_pad = _bucket(b_real)
+            b_pad = -(-_bucket(b_real) // dp) * dp  # dp must divide the batch axis
+            b_loc, s_loc, t_loc = b_pad // dp, s // sp, t // (sp * tp)
             t0 = _time.perf_counter()
             c0 = _time.thread_time()
-            if stream is None:
-                arr = np.zeros((b_pad, k, s), dtype=np.uint8)
-                for i, req in enumerate(batch):
-                    arr[i] = req.shards
-                shards, digests = pipe.encode(arr)
-                return _Pending(batch, shards.numpy(), digests.numpy(), None, pinned,
-                                k, m, b_real, b_pad, t0, c0)
-            host_in = self._staged((b_pad, k, s), pinned)
-            host_shards = self._staged((b_pad, k + m, s), pinned)
-            host_digests = self._staged((b_pad, k + m, 32), pinned)
+            host_in = self._staged((dp, sp, b_loc, k, s_loc), pinned)
+            host_shards = self._staged((dp, sp, b_loc, t, s_loc), pinned)
+            host_digests = self._staged((dp, sp, tp, b_loc, t_loc, 32), pinned)
             arr = host_in.numpy()
-            for i, req in enumerate(batch):
-                arr[i] = req.shards
-            arr[b_real:] = 0
-            with torch.cuda.stream(stream):
-                shards, digests = pipe.encode(host_in)
-                host_shards.copy_(shards, non_blocking=True)
-                host_digests.copy_(digests, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(stream)
-            return _Pending(batch, host_shards.numpy(), host_digests.numpy(), event, pinned,
-                            k, m, b_real, b_pad, t0, c0)
+            for i in range(b_pad):
+                g, j = divmod(i, b_loc)
+                arr[g, :, j] = batch[i].shards.reshape(k, sp, s_loc).transpose(1, 0, 2) if i < b_real else 0
+            events = []
+            with mesh_lib.use_streams(streams):
+                if mesh is None:
+                    pieces = {(0, 0, 0): pipe.encode(host_in[0, 0])}
+                else:
+                    pieces = pipe.encode_blocks({
+                        c: host_in[c[0], c[2]].to(mesh.device(c), non_blocking=True) for c in mesh.coords()
+                    })
+                for (d, ti, si), (shards, digests) in pieces.items():
+                    if ti == 0:
+                        host_shards[d, si].copy_(shards, non_blocking=True)
+                    host_digests[d, si, ti].copy_(digests, non_blocking=True)
+                    if streams is not None:
+                        events.append(torch.cuda.Event())
+                        events[-1].record(torch.cuda.current_stream(shards.device))
+            return _Pending(batch, host_shards.numpy().transpose(0, 2, 3, 1, 4),
+                            host_digests.numpy().transpose(0, 3, 1, 2, 4, 5), events, pinned,
+                            k, m, b_real, b_pad, t0, c0, dp if mesh is not None else None)
         except Exception as e:  # noqa: BLE001 - surfaced through every future
             self._release(pinned)
             for req in batch:
@@ -351,8 +419,8 @@ class BatchingDeviceCodec(BlockCodec):
 
     def _resolve_batch(self, rec: _Pending) -> None:
         try:
-            if rec.event is not None:
-                rec.event.synchronize()
+            for event in rec.events:
+                event.synchronize()
             dt = _time.perf_counter() - rec.t0
             # Ledger record, not a span: worker threads run outside any
             # request context, so a span here would be a silent no-op. The
@@ -367,12 +435,19 @@ class BatchingDeviceCodec(BlockCodec):
                 self.batches_run += 1
                 self.blocks_encoded += rec.b_real
                 self.blocks_padded += rec.b_pad
+                if rec.mesh_dp is not None:
+                    per = rec.b_pad // rec.mesh_dp
+                    for g in range(min(rec.mesh_dp, len(self.chip_blocks))):
+                        self.chip_blocks[g] += min(max(rec.b_real - g * per, 0), per)
             t = rec.k + rec.m
+            b_loc = rec.shards.shape[1]
             for i, req in enumerate(rec.batch):
+                g, j = divmod(i, b_loc)
+                digests = rec.digests[g, j].reshape(t, 32)
                 req.future.set_result(
                     (
-                        [rec.shards[i, j].tobytes() for j in range(t)],
-                        [rec.digests[i, j].tobytes() for j in range(t)],
+                        [rec.shards[g, j, r].tobytes() for r in range(t)],
+                        [digests[r].tobytes() for r in range(t)],
                     )
                 )
         except Exception as e:  # noqa: BLE001 - surfaced through every future

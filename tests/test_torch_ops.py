@@ -578,6 +578,16 @@ def test_import_checks_cover_select_fs_and_gateways():
         p.name for p in (REPO / "minio_tpu" / "s3select").glob("*.py"))
 
 
+def test_import_checks_cover_the_mesh():
+    mods = _port_modules()
+    for m in ("parallel.mesh", "parallel.batching", "models.pipeline"):
+        assert f"minio_tpu_torch.{m}" in mods
+        assert (PORT / (m.replace(".", "/") + ".py")) in sorted(PORT.rglob("*.py"))
+    # Every module of the JAX package's parallel/ has its counterpart.
+    assert sorted(p.name for p in (PORT / "parallel").glob("*.py")) == sorted(
+        p.name for p in (REPO / "minio_tpu" / "parallel").glob("*.py"))
+
+
 def test_port_imports_no_jax_in_fresh_interpreter():
     code = (
         "import importlib, json, sys\n"
